@@ -1,0 +1,74 @@
+"""B3 · mean-shift mode-search filtering (paper pipeline P5).
+
+``meanshift_cuda`` launches the hand-written Hopper kernel
+(``csrc/meanshift.cu``), replacing ``repro.kernels.meanshift.meanshift``.
+``meanshift_plain`` is the same function in plain PyTorch: the CPU path,
+and the card-side reference the kernel is held against.
+
+The ``d2 <= hr^2`` membership is a hard threshold, so the plain version
+performs exactly the kernel's float32 operations in the kernel's order, one
+torch op at a time (no op fuses a multiply into an add): d2 sums the bands
+in band order, num and den accumulate over window offsets row then column.
+The two are then bit-identical on the card.  It also never builds the
+oracle's (H, W, (2hs+1)^2, B) window stack.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+#: the kernel keeps B range values per thread in registers (B is a template)
+MAX_BANDS = 8
+
+
+def _hr2(hr: float) -> float:
+    # one float32 threshold for both versions (the oracle's weak-typed hr*hr)
+    return float(np.float32(hr * hr))
+
+
+def meanshift_plain(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> torch.Tensor:
+    """x: (H + 2hs, W + 2hs, B) pre-padded → (H, W, B) float32."""
+    H, W, B = x.shape[0] - 2 * hs, x.shape[1] - 2 * hs, x.shape[2]
+    x = x.to(torch.float32)
+    hr2 = _hr2(hr)
+    k = 2 * hs + 1
+    v = x[hs : hs + H, hs : hs + W].clone()
+    for _ in range(n_iter):
+        num = torch.zeros((H, W, B), dtype=torch.float32, device=x.device)
+        den = torch.zeros((H, W), dtype=torch.float32, device=x.device)
+        for u in range(k):
+            for w in range(k):
+                xw = x[u : u + H, w : w + W]
+                d = xw - v
+                sq = d * d
+                d2 = sq[..., 0]
+                for b in range(1, B):
+                    d2 = d2 + sq[..., b]
+                m = (d2 <= hr2).to(torch.float32)
+                num = num + xw * m[..., None]
+                den = den + m
+        v = num / torch.clamp_min(den, 1e-12)[..., None]
+    return v
+
+
+def meanshift_cuda(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> torch.Tensor:
+    """Launch the B3 kernel on a float32 CUDA tensor (same contract as
+    :func:`meanshift_plain`); counts its launches in ``.launches``."""
+    _build.require("meanshift", "x", x, 3)
+    H, W, B = x.shape[0] - 2 * hs, x.shape[1] - 2 * hs, x.shape[2]
+    if H <= 0 or W <= 0:
+        raise ValueError(f"meanshift: x {tuple(x.shape)} smaller than its halo {hs}")
+    if not 1 <= B <= MAX_BANDS:
+        raise ValueError(f"meanshift: bands must be in [1, {MAX_BANDS}], got {B}")
+    out = torch.empty((H, W, B), dtype=torch.float32, device=x.device)
+    _build.launch(
+        "meanshift", "meanshift_f32", x.device,
+        x.data_ptr(), out.data_ptr(), H, W, B, hs, _hr2(hr), n_iter,
+    )
+    meanshift_cuda.launches += 1
+    return out
+
+
+meanshift_cuda.launches = 0

@@ -1,0 +1,112 @@
+"""The hand-written CUDA kernels on the card: each against its plain PyTorch
+version on the same CUDA tensors, the launch counts, the wrappers' input
+checks, and the small pipelines on ``cuda`` against the CPU path.
+
+These need a GPU and ``nvcc`` (a CUDA kernel has no CPU mode) and skip
+elsewhere.  On a GPU host:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import pipelines as TP  # noqa: E402
+from repro_torch.core import StripeSplitter, TileSplitter  # noqa: E402
+from repro_torch.kernels import glcm as T_glcm  # noqa: E402
+from repro_torch.kernels import meanshift as T_ms  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import pansharpen as T_ps  # noqa: E402
+from repro_torch.raster import ArraySource  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+RNG = np.random.default_rng(5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("shape,bands", [((16, 16), 4), ((32, 48), 3), ((24, 20), 1), ((37, 301), 4)])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_pansharpen_kernel_matches_plain(cuda, shape, bands, radius):
+    H, W = shape
+    xs = _t(RNG.uniform(0, 4096, (H, W, bands)).astype(np.float32), cuda)
+    pan = _t(RNG.uniform(1, 4096, (H + 2 * radius, W + 2 * radius, 2)).astype(np.float32), cuda)
+    n = T_ps.pansharpen_cuda.launches
+    got = T_ps.pansharpen_cuda(xs, pan, radius)
+    assert T_ps.pansharpen_cuda.launches == n + 1
+    want = T_ps.pansharpen_plain(xs, pan, radius)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (32, 24), (40, 56), (37, 301)])
+@pytest.mark.parametrize("radius,offset,levels", [(1, (0, 1), 4), (2, (1, 1), 8), (2, (-1, 2), 16)])
+def test_glcm_kernel_matches_plain(cuda, shape, radius, offset, levels):
+    halo = radius + max(abs(offset[0]), abs(offset[1]))
+    H, W = shape
+    band = _t(RNG.integers(0, 4096, (H + 2 * halo, W + 2 * halo)).astype(np.float32), cuda)
+    got = T_glcm.glcm_features_cuda(band, radius, offset, levels, 0.0, 4096.0)
+    want = T_glcm.glcm_features_plain(band, radius, offset, levels, 0.0, 4096.0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hs,n_iter", [(1, 1), (2, 3), (3, 4)])
+@pytest.mark.parametrize("bands", [1, 3, 4])
+def test_meanshift_kernel_is_bit_identical_to_plain(cuda, hs, n_iter, bands):
+    H, W = 37, 45
+    x = _t(RNG.uniform(0, 500, (H + 2 * hs, W + 2 * hs, bands)).astype(np.float32), cuda)
+    got = T_ms.meanshift_cuda(x, hs, 120.0, n_iter)
+    want = T_ms.meanshift_plain(x, hs, 120.0, n_iter)
+    assert torch.equal(got, want), (got != want).sum().item()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(20, 20, 3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        T_ms.meanshift_cuda(x.to(torch.float64), 2, 120.0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        T_ms.meanshift_cuda(x.transpose(0, 1), 2, 120.0, 1)
+    with pytest.raises(ValueError, match="bands"):
+        T_ms.meanshift_cuda(torch.zeros(20, 20, 9, device=cuda), 2, 120.0, 1)
+    with pytest.raises(ValueError, match="padded"):
+        T_ps.pansharpen_cuda(torch.zeros(8, 8, 4, device=cuda), torch.zeros(8, 8, 1, device=cuda), 2)
+    with pytest.raises(ValueError, match="levels"):
+        T_glcm.glcm_features_cuda(torch.zeros(20, 20, device=cuda), 2, (0, 1), 17)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        T_glcm.glcm_features_cuda(torch.zeros(20, 20), 2, (0, 1), 8)
+
+
+def test_dispatch_launches_on_cuda_tensors(cuda):
+    before = T_ps.pansharpen_cuda.launches
+    xs = _t(RNG.uniform(0, 4096, (8, 8, 2)).astype(np.float32), cuda)
+    pan = _t(RNG.integers(1, 4096, (12, 12, 1)).astype(np.int32), cuda)
+    got = ops.pansharpen(xs, pan, 2)
+    assert T_ps.pansharpen_cuda.launches == before + 1
+    torch.testing.assert_close(got.cpu(), ops.pansharpen(xs.cpu(), pan.cpu(), 2),
+                               rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("name", ["IO", "P3", "P2", "P5"])
+@pytest.mark.parametrize("splitter", [StripeSplitter(5), TileSplitter(13, 17)])
+def test_pipelines_on_cuda_match_cpu(cuda, name, splitter):
+    xs = RNG.integers(1, 4096, (16, 12, 4)).astype(np.uint16)
+    pan = RNG.integers(1, 4096, (64, 48, 1)).astype(np.uint16)
+    ms = RNG.integers(0, 600, (48, 40, 4)).astype(np.uint16)
+    arrays, kw = {"IO": ([xs], {}), "P3": ([xs, pan], {}), "P2": ([pan], {}),
+                  "P5": ([ms], dict(hs=2, n_iter=2))}[name]
+    _, mg = TP.run_pipeline(name, *[ArraySource(a, device=cuda) for a in arrays],
+                            splitter=splitter, device=cuda, **kw)
+    _, mc = TP.run_pipeline(name, *[ArraySource(a, device="cpu") for a in arrays],
+                            splitter=splitter, device="cpu", **kw)
+    assert mg.result.dtype == mc.result.dtype
+    np.testing.assert_allclose(mg.result, mc.result, rtol=1e-4, atol=1e-2)
