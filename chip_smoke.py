@@ -12,9 +12,19 @@
    8192 x 8192), each with every kernel's launch count set to 0 just before
    and read just after, and holds a corner and an interior region of each
    output against the port's CPU pull of the same pipeline;
-4. holds every kernel against its plain PyTorch version on the inputs of one
-   stripe of its run, on the card, and times both with CUDA events;
-5. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+4. serves olmo-1b and mamba2-780m at their published widths from
+   ``repro_torch.serve.ServeEngine`` on ``cuda`` (random bfloat16 weights
+   from a seed): 4 requests of 1024 prompt tokens, 32 greedy tokens each,
+   ``max_seq`` 1056, with the launch counts set to 0 just before the
+   ``generate`` call and read just after (B4 once per olmo layer, B5 once per
+   mamba layer); holds each model against the port's CPU run of the same
+   weights on one 256-token request (last-position logits, greedy tokens),
+   and profiles one prefill and 8 decode steps (``torch.profiler``);
+5. holds every kernel against its plain PyTorch version on the card, B1-B3
+   on the inputs of one stripe of their run and B4/B5 on the inputs of layer
+   0 of the served prefill, and times both (and, for B4,
+   ``F.scaled_dot_product_attention``) with CUDA events;
+6. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Any failed phase ends the script with a nonzero exit.  Float32 matmul and
 cuDNN TF32 are switched off (no kernel here uses either; it keeps the
@@ -22,7 +32,9 @@ comparisons at full float32).
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -31,21 +43,28 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs as TC  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import ImageRegion, StripeSplitter  # noqa: E402
-from repro_torch.kernels import LAUNCHERS, _build  # noqa: E402
+from repro_torch.kernels import LAUNCHERS, _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import glcm as glcm_k  # noqa: E402
 from repro_torch.kernels import meanshift as ms_k  # noqa: E402
 from repro_torch.kernels import pansharpen as ps_k  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
+from repro_torch.models import lm as TL  # noqa: E402
 from repro_torch.raster import ArraySource, RasterReader, make_spot6_pair  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 #: H100 SXM data-sheet peaks (at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 
 XS_SIDE = 2048  # one SPOT-6 product tile: XS 2048^2 x 4 at 6 m, PAN 8192^2 at 1.5 m
 N_STRIPES = 8
@@ -55,7 +74,14 @@ TOL = {  # the reference's own tolerances (tests/test_kernels.py)
     "pansharpen": dict(rtol=1e-4, atol=1e-2),
     "glcm_features": dict(rtol=1e-4, atol=1e-4),
     "meanshift": dict(rtol=1e-4, atol=1e-2),
+    "flash_attention": dict(rtol=2e-2, atol=2e-2),  # bfloat16 inputs and output
+    "flash_attention_f32": dict(rtol=2e-4, atol=2e-4),
+    "ssd_intra_chunk": dict(rtol=2e-4, atol=2e-4),
 }
+#: the serving phase: one batch of requests per model, at published widths
+SERVE_MODELS = ("olmo-1b", "mamba2-780m")
+BATCH, PROMPT, NEW_TOKENS, MAX_SEQ = 4, 1024, 32, 1056
+CHECK_PROMPT = 256  # the one request held against the CPU run: one SSD chunk
 KERNELS = {
     "pansharpen": dict(
         source="src/repro_torch/kernels/csrc/pansharpen.cu",
@@ -71,6 +97,16 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/meanshift.cu",
         replaces="src/repro/kernels/meanshift.py:51",
         pipeline="P5",
+    ),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:58",
+        pipeline="olmo-1b",
+    ),
+    "ssd_intra_chunk": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:48",
+        pipeline="mamba2-780m",
     ),
 }
 
@@ -188,9 +224,9 @@ def run_memory(name: str, kernel: str, src, src_np, **kw) -> dict:
                 regions=check_regions(kernel, got, cpu))
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -198,7 +234,7 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def kernel_rows(xs, pan, runs) -> tuple:
+def kernel_rows(xs, pan) -> tuple:
     """Each kernel against its plain version on one interior stripe of its
     run, plus the timings of the stages around it."""
     rows, stages = [], {}
@@ -219,7 +255,7 @@ def kernel_rows(xs, pan, runs) -> tuple:
     # per pixel: (2r+1)^2 adds, two divides and a max, B multiplies
     ops = got.shape[0] * got.shape[1] * ((2 * r + 1) ** 2 + 3 + got.shape[2])
     b_ms, b_by = bound(nbytes(xs_up, pan_f, got), ops)
-    rows.append(("pansharpen", region, chk, ms, plain_ms, b_ms, b_by))
+    rows.append(("pansharpen", str(region), chk, ms, plain_ms, b_ms, b_by, None))
     up_node, pan_node = p.inputs_of(fuse)
     reqs = fuse.requested_region(region, p.info(up_node), p.info(pan_node))
     stages["P3"] = {
@@ -251,7 +287,7 @@ def kernel_rows(xs, pan, runs) -> tuple:
     # nonzero bin (the kernel skips zero bins)
     ops = px * (nwin * (2 * 4 + 3) + tex.levels ** 2 + 8) + nnz * 28
     b_ms, b_by = bound(nbytes(band, got), ops)
-    rows.append(("glcm_features", region, chk, ms, plain_ms, b_ms, b_by))
+    rows.append(("glcm_features", str(region), chk, ms, plain_ms, b_ms, b_by, None))
     stages["P2"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(tex)[0], region.pad(tex.halo)), reps=5),
         "kernel_ms": ms,
@@ -277,7 +313,7 @@ def kernel_rows(xs, pan, runs) -> tuple:
     # not counted, so this bound is a lower bound.
     ops = px * msf.n_iter * ((2 * msf.hs + 1) ** 2 * (3 * nb) + nb)
     b_ms, b_by = bound(nbytes(xf, got), ops)
-    rows.append(("meanshift", region, chk, ms, plain_ms, b_ms, b_by))
+    rows.append(("meanshift", str(region), chk, ms, plain_ms, b_ms, b_by, None))
     stages["P5"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(msf)[0], region.pad(msf.hs)), reps=5),
         "cast_ms": cuda_ms(lambda: x.to(torch.float32), reps=5),
@@ -285,19 +321,240 @@ def kernel_rows(xs, pan, runs) -> tuple:
         "d2h_ms": cuda_ms(lambda: got.cpu(), reps=5),
     }
 
-    kernels = []
-    checks = {}
-    for name, region, chk, ms, plain_ms, b_ms, b_by in rows:
+    return rows, stages
+
+
+def kernel_line(rows, launch_counts) -> tuple:
+    """The ``kernels`` JSON entries (B1-B5) and the checks behind them."""
+    kernels, checks = [], {}
+    for name, where, chk, ms, plain_ms, b_ms, b_by, lib_ms in rows:
         meta = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": runs[meta["pipeline"]]["launches"][name],
+            "launches": launch_counts[meta["pipeline"]][name],
             "max_abs_err": chk["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
-        checks[name] = dict(chk, stripe=str(region))
-    return kernels, checks, stages
+        checks[name] = dict(chk, inputs=where)
+    return kernels, checks
+
+
+# ---------------------------------------------------------------------------
+# serving: olmo-1b (B4) and mamba2-780m (B5)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def first_call_args(module, name: str):
+    """Record the arguments of the first call to ``module.name`` (the
+    model's layer 0) while the block runs."""
+    orig, box = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        if not box:
+            box.append([a.clone() for a in args if torch.is_tensor(a)])
+        return orig(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield box
+    finally:
+        setattr(module, name, orig)
+
+
+def logit_tolerance(cfg, cpu_logits: torch.Tensor) -> float:
+    """bfloat16 keeps 8 significant bits (a relative step of 2^-8), and the
+    residual stream is rounded twice per layer.  Independent roundings over
+    2L adds grow like sqrt(2L); a logit moves by that share of the logits'
+    spread, and the largest of ~50k logit errors reaches ~4.5 standard
+    deviations.  Doubled for errors that do not cancel:
+    tol = 9 * 2^-8 * sqrt(2L) * std(CPU logits)."""
+    real = cpu_logits[..., : cfg.vocab_size].to(torch.float64)
+    return float(9 * 2.0 ** -8 * math.sqrt(2 * cfg.n_layers) * real.std())
+
+
+def cpu_greedy(model, cfg, prompt: torch.Tensor, n_new: int) -> tuple:
+    """The port's CPU run (plain versions): last-position logits of the
+    prefill, the greedy tokens and the logits each one was taken from."""
+    logits, cache = TL.prefill(model, cfg, prompt, max_seq=prompt.shape[1] + n_new)
+    first, tokens, steps = logits, [], []
+    for _ in range(n_new):
+        steps.append(logits.reshape(-1))
+        tok = logits.reshape(1, -1).argmax(dim=-1)[:, None]
+        tokens.append(int(tok))
+        logits, cache = TL.decode_step(model, cfg, cache, tok)
+    return first, tokens, steps
+
+
+def serve_model(arch: str) -> tuple:
+    """Serve ``arch`` at its published widths on the card; returns the run's
+    record and the layer-0 inputs of the kernel on its path."""
+    cfg = TC.get_config(arch)
+    kernel = "flash_attention" if cfg.family == "dense" else "ssd_intra_chunk"
+    t0 = time.perf_counter()
+    model = TL.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
+    engine = ServeEngine(cfg, model, max_seq=MAX_SEQ, device="cuda")
+
+    # warm-up (CUDA's lazy module loading), recording layer 0's kernel inputs
+    with first_call_args(ops, kernel) as box:
+        engine.generate(prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    # the main path: one generate call, launch counts read around it
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launches()
+    out_h = out.cpu()
+    if out_h.shape != (BATCH, PROMPT + NEW_TOKENS):
+        raise AssertionError(f"{arch}: generated {tuple(out_h.shape)}")
+    if not torch.equal(out_h[:, :PROMPT], prompts.cpu()):
+        raise AssertionError(f"{arch}: prompts not kept")
+    if not ((out_h >= 0) & (out_h < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: tokens outside the vocabulary")
+
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = TL.prefill(model, cfg, prompts, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    prefill_ms = float(np.median(prefill_s)) * 1e3
+    profiled = profile_serving(model, cfg, prompts)
+
+    # the same weights on the CPU (plain versions), one 256-token request
+    req = prompts[:1, :CHECK_PROMPT]
+    gpu_logits, _ = TL.prefill(model, cfg, req)
+    gpu_tokens = engine.generate(req, max_new_tokens=NEW_TOKENS)[0, CHECK_PROMPT:].tolist()
+    t0 = time.perf_counter()
+    cpu_model = TL.LM(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_logits, cpu_tokens, step_logits = cpu_greedy(cpu_model, cfg, req.cpu(), NEW_TOKENS)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    tol = logit_tolerance(cfg, cpu_logits)
+    diff = (gpu_logits.cpu() - cpu_logits)[..., : cfg.vocab_size].abs()
+    if not float(diff.max()) <= tol:
+        raise AssertionError(f"{arch}: card vs CPU logits differ by {float(diff.max())} > {tol}")
+    gaps = [float(t[0] - t[1]) for t in (torch.topk(s, 2).values for s in step_logits)]
+    steps = next((i for i, g in enumerate(gaps) if g < tol), len(gaps))
+    if gpu_tokens[:steps] != cpu_tokens[:steps]:
+        raise AssertionError(f"{arch}: greedy tokens differ within the first {steps} steps: "
+                             f"{gpu_tokens[:steps]} vs {cpu_tokens[:steps]}")
+    # where the two runs first part, the card's token must be a near tie
+    # on the CPU: within the logit tolerance of the CPU's best
+    first_split = next((i for i, (g, c) in enumerate(zip(gpu_tokens, cpu_tokens)) if g != c),
+                       None)
+    if first_split is not None:
+        at = step_logits[first_split]
+        if float(at.max() - at[gpu_tokens[first_split]]) > tol:
+            raise AssertionError(f"{arch}: at step {first_split} the card's token is "
+                                 f"{float(at.max() - at[gpu_tokens[first_split]])} below the "
+                                 f"CPU's best, over {tol}")
+
+    record = dict(
+        model=arch, kernel=kernel, init_s=init_s, batch=BATCH, prompt=PROMPT,
+        new_tokens=NEW_TOKENS, generate_s=gen_s, prefill_ms=prefill_ms, prefill_runs_s=prefill_s,
+        decode_ms_per_token=(gen_s * 1e3 - prefill_ms) / NEW_TOKENS,
+        tokens_per_s=BATCH * NEW_TOKENS / gen_s,
+        prefill_tokens_per_s=BATCH * PROMPT / (prefill_ms / 1e3),
+        launches=counts, profile=profiled,
+        cpu_check=dict(prompt=CHECK_PROMPT, logit_max_abs_diff=float(diff.max()), logit_tol=tol,
+                       tokens_compared=steps, first_split=first_split,
+                       min_top2_gap=min(gaps), cpu_s=cpu_s),
+    )
+    return record, box[0]
+
+
+def profile_serving(model, cfg, prompts) -> dict:
+    """``torch.profiler`` over one prefill and, separately, 8 decode steps:
+    host wall time, device busy time (the sum of kernel times; one stream)
+    and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn) -> dict:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: the kernels (CPU ops also carry the
+        # device time of the kernels they launch)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        kernels.sort(key=lambda e: -e.self_device_time_total)
+        return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                    kernel_launches=sum(e.count for e in kernels),
+                    top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                         for e in kernels[:8]])
+
+    out = {}
+    box = {}
+
+    def prefill():
+        box["cache"] = TL.prefill(model, cfg, prompts, max_seq=MAX_SEQ)[1]
+
+    out["prefill"] = window(prefill)
+    tok = prompts[:, -1:]
+
+    def decode():
+        for _ in range(8):
+            TL.decode_step(model, cfg, box["cache"], tok)
+
+    out["decode_8_steps"] = window(decode)
+    return out
+
+
+def lm_kernel_rows(fa_args, ssd_args) -> list:
+    """B4 and B5 against their plain versions on layer 0's inputs of the
+    served prefill, and their times (20 CUDA-event-timed launches each)."""
+    rows = []
+    q, k, v = fa_args
+    got = fa_k.flash_attention_cuda(q, k, v, True)
+    want = fa_k.flash_attention_plain(q, k, v, True)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    got32 = fa_k.flash_attention_cuda(qf, kf, vf, True)
+    want32 = fa_k.flash_attention_plain(qf, kf, vf, True)
+    torch.cuda.synchronize()
+    chk = compare("flash_attention", got.float().cpu().numpy(), want.float().cpu().numpy())
+    chk["float32"] = compare("flash_attention_f32", got32.cpu().numpy(), want32.cpu().numpy())
+    ms = cuda_ms(lambda: fa_k.flash_attention_cuda(q, k, v, True))
+    plain_ms = cuda_ms(lambda: fa_k.flash_attention_plain(q, k, v, True))
+    gqa = {"enable_gqa": True} if q.shape[0] != k.shape[0] else {}
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                            is_causal=True, **gqa))
+    BH, S, D = q.shape
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs per row
+    b_ms, b_by = bound(nbytes(q, k, v, got), BH * pairs * 4 * D, BF16_TENSOR_FLOPS_PER_S)
+    rows.append(("flash_attention", f"layer 0 q/k/v {tuple(q.shape)} {q.dtype}", chk, ms,
+                 plain_ms, b_ms, b_by, lib_ms))
+
+    x, dt, cum, B, C = ssd_args
+    y, st = ssd_k.ssd_intra_chunk_cuda(*ssd_args)
+    wy, wst = ssd_k.ssd_intra_chunk_plain(*ssd_args)
+    torch.cuda.synchronize()
+    chk = compare("ssd_intra_chunk", y.cpu().numpy(), wy.cpu().numpy())
+    chk["states"] = compare("ssd_intra_chunk", st.cpu().numpy(), wst.cpu().numpy())
+    ms = cuda_ms(lambda: ssd_k.ssd_intra_chunk_cuda(*ssd_args))
+    plain_ms = cuda_ms(lambda: ssd_k.ssd_intra_chunk_plain(*ssd_args))
+    cells, L, P = x.shape
+    N = B.shape[2]
+    pairs = L * (L + 1) // 2
+    ops_n = cells * (pairs * 2 * N + pairs * 2 * P + L * 2 * N * P)
+    b_ms, b_by = bound(nbytes(x, dt, cum, B, C, y, st), ops_n)
+    rows.append(("ssd_intra_chunk", f"layer 0 cells x {tuple(x.shape)}, B/C {tuple(B.shape)}",
+                 chk, ms, plain_ms, b_ms, b_by, None))
+    return rows
 
 
 def main() -> int:
@@ -338,15 +595,30 @@ def main() -> int:
         print(json.dumps({"pipeline": name, **r}), flush=True)
         if r["finite_share"] != 1.0:
             raise AssertionError(f"{name}: non-finite output pixels")
+    rows, stages = kernel_rows(xs, pan)
+    print(json.dumps({"stripe_stages_ms": stages}), flush=True)
+    del xs, pan
+
+    captured = {}
+    for arch in SERVE_MODELS:
+        record, captured[arch] = serve_model(arch)
+        runs[arch] = record
+        print(json.dumps({"serve": record}), flush=True)
+        n_layers = TC.get_config(arch).n_layers
+        others = {k: n for k, n in record["launches"].items() if k != record["kernel"]}
+        if record["launches"][record["kernel"]] != n_layers or any(others.values()):
+            raise AssertionError(f"{arch}: launches {record['launches']}, expected "
+                                 f"{record['kernel']} once per layer ({n_layers}) and no other")
+    rows += lm_kernel_rows(captured["olmo-1b"], captured["mamba2-780m"])
+
+    launch_counts = {name: r["launches"] for name, r in runs.items()}
     for name, meta in KERNELS.items():
-        n = runs[meta["pipeline"]]["launches"][name]
+        n = launch_counts[meta["pipeline"]][name]
         if n <= 0:
             raise AssertionError(f"{name}: kernel not launched on the {meta['pipeline']} main path")
         print(f"{name}: {n} launches in {meta['pipeline']}", flush=True)
-
-    kernels, checks, stages = kernel_rows(xs, pan, runs)
+    kernels, checks = kernel_line(rows, launch_counts)
     print(json.dumps({"kernel_checks": checks}), flush=True)
-    print(json.dumps({"stripe_stages_ms": stages}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

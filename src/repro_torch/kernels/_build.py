@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels, and the helpers their
 wrappers share (input checks, the launch, true division).
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, into ``<repo>/build/repro_torch/``, keyed by a
 hash of the sources and flags, so an unchanged checkout builds once.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +38,11 @@ SIGNATURES = {
     "glcm_features_f32": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     # x, out, H, W, B, hs, hr2, n_iter, stream
     "meanshift_f32": (_I, (_P, _P, _I, _I, _I, _I, _F, _I, _P)),
+    # q, k, v, out, BHq, BHkv, Sq, Skv, D, causal, scale, stream
+    "flash_attention_f32": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+    "flash_attention_bf16": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+    # x, dt, cum, B, C, y, states, cells, group, L, P, N, stream
+    "ssd_intra_chunk_f32": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "repro_cuda_error_string": (ctypes.c_char_p, (_I,)),
 }
 
@@ -72,23 +78,45 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless this source hash is already built.  The
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
+    """Compile the kernels unless this source hash is already built: one
+    ``nvcc -c`` per source, all running at once, then one link.  The
+    compilers' report (``-Xptxas -v``: registers, shared memory, spills) is
     kept beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, cmd, proc in jobs:  # wait for every compiler, failed or not
+        log.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{log[-1][-4000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{proc.stderr[-4000:]}"
-        )
-    tmp.replace(out)  # atomic: a concurrent build never loads a partial file
+    try:
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *(str(obj) for obj, _, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed (rc={proc.returncode}): {' '.join(cmd)}\n"
+                              f"{proc.stderr[-4000:]}")
+        out.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp.replace(out)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for obj, _, _ in jobs:
+            obj.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
     return out
 
 
@@ -114,13 +142,13 @@ def true_div(t: torch.Tensor, divisor: float) -> torch.Tensor:
     return t / torch.tensor(divisor, dtype=t.dtype, device=t.device)
 
 
-def require(kernel: str, name: str, t, ndim: int) -> None:
-    """Reject what a launcher does not take: it reads contiguous float32
-    CUDA memory of a fixed rank."""
+def require(kernel: str, name: str, t, ndim: int, dtype: torch.dtype = torch.float32) -> None:
+    """Reject what a launcher does not take: it reads contiguous CUDA memory
+    of one dtype (float32 unless ``dtype`` says otherwise) and a fixed rank."""
     if t.device.type != "cuda":
         raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{kernel}: {name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():

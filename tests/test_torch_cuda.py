@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors, the launch counts, the wrappers' input
-checks, and the small pipelines on ``cuda`` against the CPU path.
+checks, and the small pipelines and reduced served models on ``cuda``
+against the CPU path.
 
 These need a GPU and ``nvcc`` (a CUDA kernel has no CPU mode) and skip
 elsewhere.  On a GPU host:
@@ -12,13 +13,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs as TC  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import StripeSplitter, TileSplitter  # noqa: E402
+from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
 from repro_torch.kernels import glcm as T_glcm  # noqa: E402
 from repro_torch.kernels import meanshift as T_ms  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pansharpen as T_ps  # noqa: E402
+from repro_torch.kernels import ssd_scan as T_ssd  # noqa: E402
+from repro_torch.models import lm as T_lm  # noqa: E402
 from repro_torch.raster import ArraySource  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +116,97 @@ def test_pipelines_on_cuda_match_cpu(cuda, name, splitter):
                             splitter=splitter, device="cpu", **kw)
     assert mg.result.dtype == mc.result.dtype
     np.testing.assert_allclose(mg.result, mc.result, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("BHq,BHkv,Sq,Skv,D", [(3, 3, 128, 128, 32), (3, 3, 256, 256, 64),
+                                              (6, 2, 100, 100, 16), (4, 4, 77, 77, 128),
+                                              (4, 1, 40, 90, 64), (8, 8, 1024, 1024, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, BHq, BHkv, Sq, Skv, D, causal, dtype):
+    """The reference's tolerances: 2e-4 in float32, 2e-2 in bfloat16."""
+    dt = getattr(torch, dtype)
+    q = _t(RNG.normal(size=(BHq, Sq, D)).astype(np.float32), cuda).to(dt)
+    k = _t(RNG.normal(size=(BHkv, Skv, D)).astype(np.float32), cuda).to(dt)
+    v = _t(RNG.normal(size=(BHkv, Skv, D)).astype(np.float32), cuda).to(dt)
+    n = T_fa.flash_attention_cuda.launches
+    got = T_fa.flash_attention_cuda(q, k, v, causal)
+    assert T_fa.flash_attention_cuda.launches == n + 1 and got.dtype == dt
+    want = T_fa.flash_attention_plain(q, k, v, causal)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("cells,rows,L,P,N", [(5, 5, 16, 8, 4), (5, 5, 64, 32, 16),
+                                              (6, 2, 100, 24, 20), (4, 4, 1, 8, 4),
+                                              (48, 1, 256, 64, 128)])
+def test_ssd_intra_chunk_kernel_matches_plain(cuda, cells, rows, L, P, N):
+    """At the reference's 2e-4; cells share B/C rows in groups of
+    cells // rows."""
+    x = _t(RNG.normal(size=(cells, L, P)).astype(np.float32), cuda)
+    dt = _t(RNG.uniform(0.01, 0.2, (cells, L)).astype(np.float32), cuda)
+    cum = torch.cumsum(-dt * _t(RNG.uniform(0.2, 1.0, (cells, L)).astype(np.float32), cuda), 1)
+    B = _t(RNG.normal(size=(rows, L, N)).astype(np.float32), cuda)
+    C = _t(RNG.normal(size=(rows, L, N)).astype(np.float32), cuda)
+    n = T_ssd.ssd_intra_chunk_cuda.launches
+    y, s = T_ssd.ssd_intra_chunk_cuda(x, dt, cum, B, C)
+    assert T_ssd.ssd_intra_chunk_cuda.launches == n + 1
+    wy, ws = T_ssd.ssd_intra_chunk_plain(x, dt, cum, B, C)
+    torch.testing.assert_close(y, wy, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_intra_chunk_kernel_selects_before_exp(cuda):
+    """exp(cum_i − cum_j) is inf for j > i over a steep 256-step chunk; the
+    kernel must give finite values equal to the plain version."""
+    x = _t(RNG.normal(size=(2, 256, 8)).astype(np.float32), cuda)
+    dt = _t(RNG.uniform(0.01, 0.2, (2, 256)).astype(np.float32), cuda)
+    cum = torch.cumsum(torch.full((2, 256), -1.0, device=cuda), 1)
+    B, C = (_t(RNG.normal(size=(2, 256, 8)).astype(np.float32), cuda) for _ in range(2))
+    y, s = T_ssd.ssd_intra_chunk_cuda(x, dt, cum, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    wy, ws = T_ssd.ssd_intra_chunk_plain(x, dt, cum, B, C)
+    torch.testing.assert_close(y, wy, rtol=2e-4, atol=2e-4)
+
+
+def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(4, 16, 32, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        T_fa.flash_attention_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="bfloat16"):
+        T_fa.flash_attention_cuda(q.bfloat16(), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        T_fa.flash_attention_cuda(*(torch.zeros(4, 16, 48, device=cuda) for _ in range(3)))
+    with pytest.raises(ValueError, match="group"):
+        T_fa.flash_attention_cuda(q, torch.zeros(3, 16, 32, device=cuda),
+                                  torch.zeros(3, 16, 32, device=cuda))
+    x = torch.zeros(4, 16, 80, device=cuda)
+    d = torch.zeros(4, 16, device=cuda)
+    b = torch.zeros(2, 16, 8, device=cuda)
+    with pytest.raises(ValueError, match="above"):
+        T_ssd.ssd_intra_chunk_cuda(x, d, d, b, b)
+    with pytest.raises(ValueError, match="group"):
+        T_ssd.ssd_intra_chunk_cuda(x[:3, :, :8].contiguous(), d[:3], d[:3], b, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        T_ssd.ssd_intra_chunk_cuda(x[..., :8], d, d, b, b)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-780m"])
+def test_reduced_models_served_on_cuda_match_cpu(cuda, arch):
+    """Reduced float32 models, the same weights on the card and the CPU:
+    prefill logits at 2e-4 (the kernels' float32 tolerance), the kernel
+    launched once per layer, greedy tokens identical."""
+    cfg = TC.reduced(TC.get_config(arch))
+    gpu = T_lm.init_params(cfg, seed=0, device=cuda)
+    cpu = T_lm.LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    prompts = RNG.integers(0, cfg.vocab_size, (2, 48))
+    launcher = T_fa.flash_attention_cuda if cfg.family == "dense" else T_ssd.ssd_intra_chunk_cuda
+    n = launcher.launches
+    gl, _ = T_lm.prefill(gpu, cfg, torch.from_numpy(prompts).to(cuda))
+    assert launcher.launches == n + cfg.n_layers
+    cl, _ = T_lm.prefill(cpu, cfg, torch.from_numpy(prompts))
+    torch.testing.assert_close(gl.cpu(), cl, rtol=2e-4, atol=2e-4)
+    got = ServeEngine(cfg, gpu, max_seq=64, device=cuda).generate(prompts, 8)
+    want = ServeEngine(cfg, cpu, max_seq=64, device="cpu").generate(prompts, 8)
+    assert torch.equal(got.cpu(), want)
