@@ -12,18 +12,20 @@
    8192 x 8192), each with every kernel's launch count set to 0 just before
    and read just after, and holds a corner and an interior region of each
    output against the port's CPU pull of the same pipeline;
-4. serves olmo-1b and mamba2-780m at their published widths from
-   ``repro_torch.serve.ServeEngine`` on ``cuda`` (random bfloat16 weights
-   from a seed): 4 requests of 1024 prompt tokens, 32 greedy tokens each,
-   ``max_seq`` 1056, with the launch counts set to 0 just before the
-   ``generate`` call and read just after (B4 once per olmo layer, B5 once per
-   mamba layer); holds each model against the port's CPU run of the same
-   weights on one 256-token request (last-position logits, greedy tokens),
-   and profiles one prefill and 8 decode steps (``torch.profiler``);
+4. serves olmo-1b, gemma-2b and mamba2-780m at their published widths and
+   depths from ``repro_torch.serve.ServeEngine`` on ``cuda`` (random
+   bfloat16 weights from a seed): 4 requests of 1024 prompt tokens, 32
+   greedy tokens each, ``max_seq`` 1056, with the launch counts set to 0
+   just before the ``generate`` call and read just after (B4 once per olmo
+   and gemma layer, B5 once per mamba layer); holds each model against the
+   port's CPU run of the same weights on one 256-token request
+   (last-position logits, greedy tokens), and profiles one prefill and 8
+   decode steps (``torch.profiler``);
 5. holds every kernel against its plain PyTorch version on the card, B1-B3
    on the inputs of one stripe of their run and B4/B5 on the inputs of layer
-   0 of the served prefill, and times both (and, for B4,
-   ``F.scaled_dot_product_attention``) with CUDA events;
+   0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape), and
+   times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
+   events;
 6. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Any failed phase ends the script with a nonzero exit.  Float32 matmul and
@@ -79,34 +81,29 @@ TOL = {  # the reference's own tolerances (tests/test_kernels.py)
     "ssd_intra_chunk": dict(rtol=2e-4, atol=2e-4),
 }
 #: the serving phase: one batch of requests per model, at published widths
-SERVE_MODELS = ("olmo-1b", "mamba2-780m")
+SERVE_MODELS = ("olmo-1b", "gemma-2b", "mamba2-780m")
 BATCH, PROMPT, NEW_TOKENS, MAX_SEQ = 4, 1024, 32, 1056
 CHECK_PROMPT = 256  # the one request held against the CPU run: one SSD chunk
 KERNELS = {
     "pansharpen": dict(
         source="src/repro_torch/kernels/csrc/pansharpen.cu",
         replaces="src/repro/kernels/pansharpen.py:50",
-        pipeline="P3",
     ),
     "glcm_features": dict(
         source="src/repro_torch/kernels/csrc/glcm.cu",
         replaces="src/repro/kernels/glcm.py:91",
-        pipeline="P2",
     ),
     "meanshift": dict(
         source="src/repro_torch/kernels/csrc/meanshift.cu",
         replaces="src/repro/kernels/meanshift.py:51",
-        pipeline="P5",
     ),
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:58",
-        pipeline="olmo-1b",
     ),
     "ssd_intra_chunk": dict(
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:48",
-        pipeline="mamba2-780m",
     ),
 }
 
@@ -119,18 +116,28 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, each run between CUDA events."""
+    """Median time of one ``fn`` in ms.  Each of ``reps`` samples puts two
+    CUDA events around a run of back-to-back calls (as many as fill ~2 ms,
+    at most 50) and divides by their number, so the host's cost of a launch
+    overlaps the device's work as it does in a model; around a single short
+    kernel the events would time the launch as well."""
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    n = int(min(50, max(1, 2.0 // max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
 
 
@@ -255,7 +262,7 @@ def kernel_rows(xs, pan) -> tuple:
     # per pixel: (2r+1)^2 adds, two divides and a max, B multiplies
     ops = got.shape[0] * got.shape[1] * ((2 * r + 1) ** 2 + 3 + got.shape[2])
     b_ms, b_by = bound(nbytes(xs_up, pan_f, got), ops)
-    rows.append(("pansharpen", str(region), chk, ms, plain_ms, b_ms, b_by, None))
+    rows.append(("pansharpen", "P3", str(region), chk, ms, plain_ms, b_ms, b_by, None))
     up_node, pan_node = p.inputs_of(fuse)
     reqs = fuse.requested_region(region, p.info(up_node), p.info(pan_node))
     stages["P3"] = {
@@ -287,7 +294,7 @@ def kernel_rows(xs, pan) -> tuple:
     # nonzero bin (the kernel skips zero bins)
     ops = px * (nwin * (2 * 4 + 3) + tex.levels ** 2 + 8) + nnz * 28
     b_ms, b_by = bound(nbytes(band, got), ops)
-    rows.append(("glcm_features", str(region), chk, ms, plain_ms, b_ms, b_by, None))
+    rows.append(("glcm_features", "P2", str(region), chk, ms, plain_ms, b_ms, b_by, None))
     stages["P2"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(tex)[0], region.pad(tex.halo)), reps=5),
         "kernel_ms": ms,
@@ -313,7 +320,7 @@ def kernel_rows(xs, pan) -> tuple:
     # not counted, so this bound is a lower bound.
     ops = px * msf.n_iter * ((2 * msf.hs + 1) ** 2 * (3 * nb) + nb)
     b_ms, b_by = bound(nbytes(xf, got), ops)
-    rows.append(("meanshift", str(region), chk, ms, plain_ms, b_ms, b_by, None))
+    rows.append(("meanshift", "P5", str(region), chk, ms, plain_ms, b_ms, b_by, None))
     stages["P5"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(msf)[0], region.pad(msf.hs)), reps=5),
         "cast_ms": cuda_ms(lambda: x.to(torch.float32), reps=5),
@@ -327,16 +334,16 @@ def kernel_rows(xs, pan) -> tuple:
 def kernel_line(rows, launch_counts) -> tuple:
     """The ``kernels`` JSON entries (B1-B5) and the checks behind them."""
     kernels, checks = [], {}
-    for name, where, chk, ms, plain_ms, b_ms, b_by, lib_ms in rows:
+    for name, cell, where, chk, ms, plain_ms, b_ms, b_by, lib_ms in rows:
         meta = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"],
-            "launches": launch_counts[meta["pipeline"]][name],
+            "replaces": meta["replaces"], "cell": cell,
+            "launches": launch_counts[cell][name],
             "max_abs_err": chk["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
-        checks[name] = dict(chk, inputs=where)
+        checks[f"{name}@{cell}"] = dict(chk, inputs=where)
     return kernels, checks
 
 
@@ -515,10 +522,12 @@ def profile_serving(model, cfg, prompts) -> dict:
     return out
 
 
-def lm_kernel_rows(fa_args, ssd_args) -> list:
-    """B4 and B5 against their plain versions on layer 0's inputs of the
-    served prefill, and their times (20 CUDA-event-timed launches each)."""
-    rows = []
+def b4_row(cell: str, fa_args) -> tuple:
+    """B4 against its plain version on layer 0's q/k/v of ``cell``'s served
+    prefill, in bfloat16 (the tensor-core design at D >= 64) and in float32
+    (the CUDA-core design), and its time beside the plain version's and
+    ``F.scaled_dot_product_attention``'s (k and v repeated to one row per
+    query row for that call only)."""
     q, k, v = fa_args
     got = fa_k.flash_attention_cuda(q, k, v, True)
     want = fa_k.flash_attention_plain(q, k, v, True)
@@ -530,15 +539,23 @@ def lm_kernel_rows(fa_args, ssd_args) -> list:
     chk["float32"] = compare("flash_attention_f32", got32.cpu().numpy(), want32.cpu().numpy())
     ms = cuda_ms(lambda: fa_k.flash_attention_cuda(q, k, v, True))
     plain_ms = cuda_ms(lambda: fa_k.flash_attention_plain(q, k, v, True))
-    gqa = {"enable_gqa": True} if q.shape[0] != k.shape[0] else {}
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                                            is_causal=True, **gqa))
+    G = q.shape[0] // k.shape[0]
+    ke, ve = (t.repeat_interleave(G, dim=0) for t in (k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], ke[None], ve[None],
+                                                            is_causal=True))
     BH, S, D = q.shape
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per row
     b_ms, b_by = bound(nbytes(q, k, v, got), BH * pairs * 4 * D, BF16_TENSOR_FLOPS_PER_S)
-    rows.append(("flash_attention", f"layer 0 q/k/v {tuple(q.shape)} {q.dtype}", chk, ms,
-                 plain_ms, b_ms, b_by, lib_ms))
+    where = f"layer 0 q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}"
+    return ("flash_attention", cell, where, chk, ms, plain_ms, b_ms, b_by, lib_ms)
 
+
+def lm_kernel_rows(captured: dict) -> list:
+    """B4 (at olmo-1b's and gemma-2b's shapes) and B5 against their plain
+    versions on layer 0's inputs of the served prefill, and their times (20
+    CUDA-event-timed launches each)."""
+    rows = [b4_row(arch, captured[arch]) for arch in ("olmo-1b", "gemma-2b")]
+    ssd_args = captured["mamba2-780m"]
     x, dt, cum, B, C = ssd_args
     y, st = ssd_k.ssd_intra_chunk_cuda(*ssd_args)
     wy, wst = ssd_k.ssd_intra_chunk_plain(*ssd_args)
@@ -552,7 +569,8 @@ def lm_kernel_rows(fa_args, ssd_args) -> list:
     pairs = L * (L + 1) // 2
     ops_n = cells * (pairs * 2 * N + pairs * 2 * P + L * 2 * N * P)
     b_ms, b_by = bound(nbytes(x, dt, cum, B, C, y, st), ops_n)
-    rows.append(("ssd_intra_chunk", f"layer 0 cells x {tuple(x.shape)}, B/C {tuple(B.shape)}",
+    rows.append(("ssd_intra_chunk", "mamba2-780m",
+                 f"layer 0 cells x {tuple(x.shape)}, B/C {tuple(B.shape)}",
                  chk, ms, plain_ms, b_ms, b_by, None))
     return rows
 
@@ -609,14 +627,16 @@ def main() -> int:
         if record["launches"][record["kernel"]] != n_layers or any(others.values()):
             raise AssertionError(f"{arch}: launches {record['launches']}, expected "
                                  f"{record['kernel']} once per layer ({n_layers}) and no other")
-    rows += lm_kernel_rows(captured["olmo-1b"], captured["mamba2-780m"])
+    rows += lm_kernel_rows(captured)
 
     launch_counts = {name: r["launches"] for name, r in runs.items()}
-    for name, meta in KERNELS.items():
-        n = launch_counts[meta["pipeline"]][name]
+    if {row[0] for row in rows} != set(KERNELS):
+        raise AssertionError(f"kernel rows {sorted({row[0] for row in rows})} != {sorted(KERNELS)}")
+    for name, cell, *_ in rows:
+        n = launch_counts[cell][name]
         if n <= 0:
-            raise AssertionError(f"{name}: kernel not launched on the {meta['pipeline']} main path")
-        print(f"{name}: {n} launches in {meta['pipeline']}", flush=True)
+            raise AssertionError(f"{name}: kernel not launched on the {cell} main path")
+        print(f"{name}: {n} launches in {cell}", flush=True)
     kernels, checks = kernel_line(rows, launch_counts)
     print(json.dumps({"kernel_checks": checks}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,9 +11,16 @@ Layout: q (BHq, Sq, D), k and v (BHkv, Skv, D) with BHq = G·BHkv.  Query row
 r reads kv row r // G, so grouped-query attention needs no repeated k and v;
 for G = 1 this is the reference's (BH, S, D) contract.  Causal masking
 compares the query and key indices (no offset), as the TPU kernel does.
-The kernel multiplies q by float32(1/√D) before q·kᵀ, as the TPU kernel does;
-the plain version divides the scores by √D, as the oracle does.  Both keep
-the probabilities in float32 through P·V and return q's dtype.
+
+The kernel has two designs (``csrc/flash_attention.cu``).  bfloat16 at head
+dims 64, 128 and 256 runs on the tensor cores (TMA-fed ``wgmma``): q·kᵀ is
+exact in float32 and the scale is applied to the float32 scores; P·V takes
+the float32 probabilities split into two bfloat16 parts, so they are never
+rounded once to bfloat16.  float32 at every head dim, and bfloat16 at 16 and
+32, run on the CUDA cores in float32 and multiply q by float32(1/√D) before
+q·kᵀ, as the TPU kernel does.  The plain version divides the scores by √D,
+as the oracle does.  All keep the probabilities in float32 through P·V and
+return q's dtype.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 from repro_torch.kernels import _build
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,6 +72,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v must be on one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on 16-byte boundaries")
     out = torch.empty_like(q)
     symbol = "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
     _build.launch(

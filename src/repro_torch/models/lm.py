@@ -287,12 +287,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict:
 def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence prefill of ``tokens`` (B, S) → (last-position logits
-    (B, V_padded) float32, cache sized for ``max_seq`` positions)."""
+    (B, V_padded) float32, cache sized for ``max(max_seq, S)`` positions:
+    as in the reference, a ``max_seq`` below S keeps all S)."""
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=params.device)
     B, S = tokens.shape
-    max_seq = max_seq or S
-    cache = init_cache(cfg, B, max_seq, device=params.device)
+    cache = init_cache(cfg, B, max(max_seq or S, S), device=params.device)
     positions = torch.arange(S, device=params.device)
     h = embed_tokens(params, cfg, tokens)
     for i, blk in enumerate(params.blocks):

@@ -120,11 +120,16 @@ def test_pipelines_on_cuda_match_cpu(cuda, name, splitter):
 
 @pytest.mark.parametrize("BHq,BHkv,Sq,Skv,D", [(3, 3, 128, 128, 32), (3, 3, 256, 256, 64),
                                               (6, 2, 100, 100, 16), (4, 4, 77, 77, 128),
-                                              (4, 1, 40, 90, 64), (8, 8, 1024, 1024, 128)])
+                                              (4, 1, 40, 90, 64), (8, 8, 1024, 1024, 128),
+                                              (32, 4, 1024, 1024, 256), (8, 1, 77, 77, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain(cuda, BHq, BHkv, Sq, Skv, D, causal, dtype):
-    """The reference's tolerances: 2e-4 in float32, 2e-2 in bfloat16."""
+    """The reference's tolerances: 2e-4 in float32, 2e-2 in bfloat16.  The
+    shapes cover ragged S, Sq != Skv, grouped kv rows, every head dim and
+    both designs (bfloat16 at D >= 64 runs on the tensor cores), up to
+    olmo-1b's head size (1024 x 128) and gemma-2b's layer (32 query rows
+    over 4 kv rows of 1024 x 256)."""
     dt = getattr(torch, dtype)
     q = _t(RNG.normal(size=(BHq, Sq, D)).astype(np.float32), cuda).to(dt)
     k = _t(RNG.normal(size=(BHkv, Skv, D)).astype(np.float32), cuda).to(dt)
@@ -177,6 +182,9 @@ def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         T_fa.flash_attention_cuda(q.bfloat16(), q, q)
     with pytest.raises(ValueError, match="head dim"):
         T_fa.flash_attention_cuda(*(torch.zeros(4, 16, 48, device=cuda) for _ in range(3)))
+    shifted = torch.zeros(4 * 16 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(4, 16, 64)
+    with pytest.raises(ValueError, match="16-byte"):  # TMA reads 16-byte aligned tensors
+        T_fa.flash_attention_cuda(shifted, shifted, shifted)
     with pytest.raises(ValueError, match="group"):
         T_fa.flash_attention_cuda(q, torch.zeros(3, 16, 32, device=cuda),
                                   torch.zeros(3, 16, 32, device=cuda))

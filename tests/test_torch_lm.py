@@ -205,19 +205,29 @@ def _compare_caches(jcache, tcache, tol, relative_to_leaf=False):
                                        err_msg=key)
 
 
-@pytest.mark.parametrize("arch,vocab", MODELS)
-def test_prefill_and_decode_match(arch, vocab):
-    """Prefill logits and every cache leaf, then 8 decode steps (logits
-    and caches), at F32_TOL.  The mamba prompt spans two 16-step chunks."""
+# (arch, vocab, prompt shape, max_seq): the last case asks for fewer cache
+# positions than the prompt has, and the reference then keeps all of them
+PREFILL_CASES = [pytest.param(a, v, (2, 32), 40, id=f"{a}-{v}") for a, v in MODELS] + [
+    pytest.param("olmo-1b", None, (1, 12), 8, id="olmo-1b-max_seq-below-prompt")]
+
+
+@pytest.mark.parametrize("arch,vocab,prompt,max_seq", PREFILL_CASES)
+def test_prefill_and_decode_match(arch, vocab, prompt, max_seq):
+    """Prefill logits and every cache leaf (shapes included), then up to 8
+    decode steps as the cache has room for (logits and caches), at
+    F32_TOL.  The mamba prompt spans two 16-step chunks."""
     jc, tc, params, model = _models(arch, vocab)
-    toks = _tokens(jc, (2, 32), 0)
-    jl, jcache = J_lm.prefill(params, jc, jnp.asarray(toks), max_seq=40)
-    tl, tcache = T_lm.prefill(model, tc, _t(toks), max_seq=40)
-    assert tl.shape == (2, tc.vocab_padded) and tl.dtype == torch.float32
+    toks = _tokens(jc, prompt, 0)
+    B, S = prompt
+    jl, jcache = J_lm.prefill(params, jc, jnp.asarray(toks), max_seq=max_seq)
+    tl, tcache = T_lm.prefill(model, tc, _t(toks), max_seq=max_seq)
+    assert tl.shape == (B, tc.vocab_padded) and tl.dtype == torch.float32
+    if "k" in tcache:
+        assert tcache["k"].shape == (tc.n_layers, B, max(S, max_seq), tc.n_kv_heads, tc.head_dim)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32_TOL)
     _compare_caches(jcache, tcache, F32_TOL)
-    for step in range(8):
-        tok = _tokens(jc, (2, 1), 100 + step)
+    for step in range(min(8, max_seq - S)):
+        tok = _tokens(jc, (B, 1), 100 + step)
         jl, jcache = J_lm.decode_step(params, jc, jcache, jnp.asarray(tok))
         tl, tcache = T_lm.decode_step(model, tc, tcache, _t(tok))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), err_msg=f"step {step}", **F32_TOL)

@@ -38,15 +38,23 @@ def _np(t):
 # --------------------------------------------------------------------------
 # B4 flash attention
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("S,D,blocks", [(128, 32, (32, 32)), (256, 64, (64, 128))])
+@pytest.mark.parametrize("S,D,blocks,G", [
+    pytest.param(128, 32, (32, 32), 1, id="128-32-blocks0"),
+    pytest.param(256, 64, (64, 128), 1, id="256-64-blocks1"),
+    pytest.param(128, 256, (64, 64), 8, id="128-256-G8"),
+])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_plain_matches_oracle_and_pallas(S, D, blocks, causal, dtype):
+def test_flash_attention_plain_matches_oracle_and_pallas(S, D, blocks, G, causal, dtype):
     """Tolerance: the reference's, 2e-4 in float32 and 2e-2 in bfloat16
     (the output is rounded to bfloat16 and the Pallas kernel scales q
-    before q·kᵀ)."""
+    before q·kᵀ).  With G > 1 (gemma-2b's head dim 256 and 8 query heads
+    per kv head) the oracle and the Pallas kernel get k and v repeated per
+    query row; the plain version reads kv row r // G."""
     rng = np.random.default_rng(S + D + causal)
-    q, k, v = (rng.normal(size=(3, S, D)).astype(np.float32) for _ in range(3))
+    BHkv = 3 if G == 1 else 1
+    q, k, v = (rng.normal(size=(rows, S, D)).astype(np.float32)
+               for rows in (BHkv * G, BHkv, BHkv))
     if dtype == "bfloat16":
         (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
         tol = 2e-2
@@ -54,7 +62,8 @@ def test_flash_attention_plain_matches_oracle_and_pallas(S, D, blocks, causal, d
         (jq, tq), (jk, tk), (jv, tv) = ((jnp.asarray(a), _t(a)) for a in (q, k, v))
         tol = 2e-4
     got = T_fa.flash_attention_plain(tq, tk, tv, causal)
-    assert got.dtype == tq.dtype and got.shape == (3, S, D)
+    assert got.dtype == tq.dtype and got.shape == (BHkv * G, S, D)
+    jk, jv = jnp.repeat(jk, G, axis=0), jnp.repeat(jv, G, axis=0)
     want = ref.attention_ref(jq, jk, jv, causal=causal)
     pallas = fak.flash_attention(jq, jk, jv, causal=causal, block_q=blocks[0],
                                  block_k=blocks[1], interpret=True)
