@@ -23,14 +23,16 @@
    decode steps (``torch.profiler``);
 5. holds every kernel against its plain PyTorch version on the card, B1-B3
    on the inputs of one stripe of their run and B4/B5 on the inputs of layer
-   0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape), and
-   times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
+   0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape; B5's
+   outputs over each cell's largest value, and a one-TF32-pass control must
+   fail that check), and times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
    events;
 6. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Any failed phase ends the script with a nonzero exit.  Float32 matmul and
-cuDNN TF32 are switched off (no kernel here uses either; it keeps the
-comparisons at full float32).
+cuDNN TF32 are switched off and printed before any plain version runs: the
+plain versions are the yardstick at full float32 (B5's own products use the
+TF32 tensor cores, split three ways to keep float32's precision).
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ from repro_torch.serve import ServeEngine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
+TF32_TENSOR_FLOPS_PER_S = 495e12
 
 XS_SIDE = 2048  # one SPOT-6 product tile: XS 2048^2 x 4 at 6 m, PAN 8192^2 at 1.5 m
 N_STRIPES = 8
@@ -158,6 +161,13 @@ def compare(name: str, got: np.ndarray, want: np.ndarray) -> dict:
     return out
 
 
+def tol_score(name: str, got: np.ndarray, want: np.ndarray) -> float:
+    """max |got − want| / (atol + rtol·|want|) at TOL[name]: above 1 fails."""
+    t = TOL[name]
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (t["atol"] + t["rtol"] * np.abs(want))).max())
+
+
 def reset_launches() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
@@ -231,10 +241,15 @@ def run_memory(name: str, kernel: str, src, src_np, **kw) -> dict:
                 regions=check_regions(kernel, got, cpu))
 
 
-def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS_PER_S) -> tuple:
+def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS_PER_S) -> dict:
+    """The least time for the work: the larger of the bytes (each input read
+    once, each output written once) over HBM's rate and the operations over
+    ``peak``; both are kept."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=t_bytes, ops_bound_ms=t_ops)
 
 
 def nbytes(*ts) -> int:
@@ -261,8 +276,8 @@ def kernel_rows(xs, pan) -> tuple:
     plain_ms = cuda_ms(lambda: ps_k.pansharpen_plain(xs_up, pan_f, r))
     # per pixel: (2r+1)^2 adds, two divides and a max, B multiplies
     ops = got.shape[0] * got.shape[1] * ((2 * r + 1) ** 2 + 3 + got.shape[2])
-    b_ms, b_by = bound(nbytes(xs_up, pan_f, got), ops)
-    rows.append(("pansharpen", "P3", str(region), chk, ms, plain_ms, b_ms, b_by, None))
+    bnd = bound(nbytes(xs_up, pan_f, got), ops)
+    rows.append(("pansharpen", "P3", str(region), chk, ms, plain_ms, bnd, None))
     up_node, pan_node = p.inputs_of(fuse)
     reqs = fuse.requested_region(region, p.info(up_node), p.info(pan_node))
     stages["P3"] = {
@@ -293,8 +308,8 @@ def kernel_rows(xs, pan) -> tuple:
     # window pair, a scan of Q^2 bins, ~8 flops of epilogue; ~28 flops per
     # nonzero bin (the kernel skips zero bins)
     ops = px * (nwin * (2 * 4 + 3) + tex.levels ** 2 + 8) + nnz * 28
-    b_ms, b_by = bound(nbytes(band, got), ops)
-    rows.append(("glcm_features", "P2", str(region), chk, ms, plain_ms, b_ms, b_by, None))
+    bnd = bound(nbytes(band, got), ops)
+    rows.append(("glcm_features", "P2", str(region), chk, ms, plain_ms, bnd, None))
     stages["P2"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(tex)[0], region.pad(tex.halo)), reps=5),
         "kernel_ms": ms,
@@ -319,8 +334,8 @@ def kernel_rows(xs, pan) -> tuple:
     # compare; B divides per iteration.  The data-dependent num/den adds are
     # not counted, so this bound is a lower bound.
     ops = px * msf.n_iter * ((2 * msf.hs + 1) ** 2 * (3 * nb) + nb)
-    b_ms, b_by = bound(nbytes(xf, got), ops)
-    rows.append(("meanshift", "P5", str(region), chk, ms, plain_ms, b_ms, b_by, None))
+    bnd = bound(nbytes(xf, got), ops)
+    rows.append(("meanshift", "P5", str(region), chk, ms, plain_ms, bnd, None))
     stages["P5"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(msf)[0], region.pad(msf.hs)), reps=5),
         "cast_ms": cuda_ms(lambda: x.to(torch.float32), reps=5),
@@ -334,14 +349,14 @@ def kernel_rows(xs, pan) -> tuple:
 def kernel_line(rows, launch_counts) -> tuple:
     """The ``kernels`` JSON entries (B1-B5) and the checks behind them."""
     kernels, checks = [], {}
-    for name, cell, where, chk, ms, plain_ms, b_ms, b_by, lib_ms in rows:
+    for name, cell, where, chk, ms, plain_ms, bnd, lib_ms in rows:
         meta = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "cell": cell,
             "launches": launch_counts[cell][name],
             "max_abs_err": chk["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            **bnd, "library_ms": lib_ms,
         })
         checks[f"{name}@{cell}"] = dict(chk, inputs=where)
     return kernels, checks
@@ -545,9 +560,9 @@ def b4_row(cell: str, fa_args) -> tuple:
                                                             is_causal=True))
     BH, S, D = q.shape
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per row
-    b_ms, b_by = bound(nbytes(q, k, v, got), BH * pairs * 4 * D, BF16_TENSOR_FLOPS_PER_S)
+    bnd = bound(nbytes(q, k, v, got), BH * pairs * 4 * D, BF16_TENSOR_FLOPS_PER_S)
     where = f"layer 0 q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}"
-    return ("flash_attention", cell, where, chk, ms, plain_ms, b_ms, b_by, lib_ms)
+    return ("flash_attention", cell, where, chk, ms, plain_ms, bnd, lib_ms)
 
 
 def lm_kernel_rows(captured: dict) -> list:
@@ -557,21 +572,49 @@ def lm_kernel_rows(captured: dict) -> list:
     rows = [b4_row(arch, captured[arch]) for arch in ("olmo-1b", "gemma-2b")]
     ssd_args = captured["mamba2-780m"]
     x, dt, cum, B, C = ssd_args
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("B5's plain version must run its matmuls in full float32")
     y, st = ssd_k.ssd_intra_chunk_cuda(*ssd_args)
     wy, wst = ssd_k.ssd_intra_chunk_plain(*ssd_args)
+    # the control: the plain version with its matmuls in one TF32 pass, as
+    # a kernel that lost the TF32 low parts would compute; the check below
+    # must fail it
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        cy, cst = ssd_k.ssd_intra_chunk_plain(*ssd_args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
     torch.cuda.synchronize()
-    chk = compare("ssd_intra_chunk", y.cpu().numpy(), wy.cpu().numpy())
-    chk["states"] = compare("ssd_intra_chunk", st.cpu().numpy(), wst.cpu().numpy())
+    # layer 0's outputs are ~1e-3 to 1e-1, so an absolute 2e-4 would pass a
+    # kernel off by 10 %: each cell's outputs are held at 2e-4 of its own
+    # largest plain output
+    chk = {"scaled_to": "each cell's largest |plain| output"}
+    for part, got, want, ctrl in (("y", y, wy, cy), ("states", st, wst, cst)):
+        top = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+        g, w, c = ((t / top).cpu().numpy() for t in (got, want, ctrl))
+        chk[part] = dict(compare("ssd_intra_chunk", got.cpu().numpy(), want.cpu().numpy()),
+                         scaled=compare("ssd_intra_chunk", g, w),
+                         score=tol_score("ssd_intra_chunk", g, w),
+                         tf32_control_score=tol_score("ssd_intra_chunk", c, w))
+    chk["max_abs_err"] = max(chk[part]["max_abs_err"] for part in ("y", "states"))
+    if max(chk[part]["tf32_control_score"] for part in ("y", "states")) <= 1.0:
+        raise AssertionError(f"ssd_intra_chunk: a one-TF32-pass control passes the scaled "
+                             f"check, so the check cannot tell 3xTF32 from one pass: {chk}")
     ms = cuda_ms(lambda: ssd_k.ssd_intra_chunk_cuda(*ssd_args))
     plain_ms = cuda_ms(lambda: ssd_k.ssd_intra_chunk_plain(*ssd_args))
     cells, L, P = x.shape
-    N = B.shape[2]
+    rows_bc, _, N = B.shape
     pairs = L * (L + 1) // 2
-    ops_n = cells * (pairs * 2 * N + pairs * 2 * P + L * 2 * N * P)
-    b_ms, b_by = bound(nbytes(x, dt, cum, B, C, y, st), ops_n)
+    # the function's least work: causal C·Bᵀ once per B/C row, then per cell
+    # the masked W·X and the state product; three TF32 passes each on the
+    # tensor cores (3xTF32 holds float32's precision, one pass does not)
+    ops_n = rows_bc * pairs * 2 * N + cells * (pairs * 2 * P + L * 2 * N * P)
+    bnd = bound(nbytes(x, dt, cum, B, C, y, st), 3 * ops_n, TF32_TENSOR_FLOPS_PER_S)
     rows.append(("ssd_intra_chunk", "mamba2-780m",
                  f"layer 0 cells x {tuple(x.shape)}, B/C {tuple(B.shape)}",
-                 chk, ms, plain_ms, b_ms, b_by, None))
+                 chk, ms, plain_ms, bnd, None))
     return rows
 
 
@@ -582,6 +625,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    print(json.dumps({"float32_matmul": {
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+    }}), flush=True)
 
     card = card_line()
     nvcc_ver = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,

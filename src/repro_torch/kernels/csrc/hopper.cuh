@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels, as inline
 // PTX: shared-memory addresses, mbarriers, TMA tile loads, wgmma matrix
-// descriptors and the warpgroup MMAs the kernels use (bf16 operands,
-// float32 accumulators).
+// descriptors and the warpgroup MMAs the kernels use (bf16 or TF32
+// operands, float32 accumulators).
 //
 // Layout conventions (one tile = rows of a 2-D slice):
 // - A tile is stored as "panels" of 64 bf16 columns (128 bytes per row),
@@ -223,6 +223,28 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], const uint32_t (&a)
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64, float32) += A (64 x 8, TF32 in registers) · B (64 x 8, K-major TF32 in
+// shared memory).  A's registers per thread (warp w, lane l) hold rows
+// 16w + l/4 (+ 8) at k = l % 4 (+ 4), as mma.sync's m16n8k8 TF32 fragment.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands written with st.shared)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace hopper

@@ -1,7 +1,10 @@
 """B5 · Mamba-2 SSD intra-chunk block and chunk states.
 
 ``ssd_intra_chunk_cuda`` launches the hand-written Hopper kernel
-(``csrc/ssd_scan.cu``), replacing ``repro.kernels.ssd_scan.ssd_intra_chunk``.
+(``csrc/ssd_scan.cu``), replacing ``repro.kernels.ssd_scan.ssd_intra_chunk``:
+its products run on the tensor cores in 3xTF32 (each float32 operand split
+into a TF32 high and low part, three products into one float32
+accumulator), with C·Bᵀ formed once per group of heads.
 ``ssd_intra_chunk_plain`` is the same function in plain PyTorch,
 ``repro.kernels.ref.ssd_intra_ref``: the CPU path, and the card-side
 reference the kernel is held against.
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: the kernel's largest head dim P (each thread holds 4 columns of 16)
+#: the kernel's largest head dim P (one 64-column output tile per head)
 MAX_P = 64
 
 
@@ -64,6 +67,8 @@ def ssd_intra_chunk_cuda(x, dt, cum, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"ssd_intra_chunk: head dim P = {P} above {MAX_P}")
     if len({t.device for t in (x, dt, cum, B, C)}) != 1:
         raise ValueError("ssd_intra_chunk: all inputs must be on one device")
+    if any(t.data_ptr() % 16 for t in (x, B, C)):  # their rows are copied 16 bytes at a time
+        raise ValueError("ssd_intra_chunk: x, B and C must start on 16-byte boundaries")
     y = torch.empty_like(x)
     states = torch.empty((cells, N, P), dtype=torch.float32, device=x.device)
     _build.launch(

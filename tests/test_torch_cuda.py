@@ -142,23 +142,90 @@ def test_flash_attention_kernel_matches_plain(cuda, BHq, BHkv, Sq, Skv, D, causa
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.fixture
+def full_f32():
+    """The plain version is the yardstick: its float32 matmuls run in full
+    float32, never TF32 (restored afterwards)."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.set_float32_matmul_precision(saved[0])
+    torch.backends.cuda.matmul.allow_tf32 = saved[1]
+
+
+def _ssd_inputs(cells, rows, L, P, N, dev):
+    x = _t(RNG.normal(size=(cells, L, P)).astype(np.float32), dev)
+    dt = _t(RNG.uniform(0.01, 0.2, (cells, L)).astype(np.float32), dev)
+    cum = torch.cumsum(-dt * _t(RNG.uniform(0.2, 1.0, (cells, L)).astype(np.float32), dev), 1)
+    B = _t(RNG.normal(size=(rows, L, N)).astype(np.float32), dev)
+    C = _t(RNG.normal(size=(rows, L, N)).astype(np.float32), dev)
+    return x, dt, cum, B, C
+
+
 @pytest.mark.parametrize("cells,rows,L,P,N", [(5, 5, 16, 8, 4), (5, 5, 64, 32, 16),
                                               (6, 2, 100, 24, 20), (4, 4, 1, 8, 4),
-                                              (48, 1, 256, 64, 128)])
-def test_ssd_intra_chunk_kernel_matches_plain(cuda, cells, rows, L, P, N):
+                                              (48, 1, 256, 64, 128),
+                                              (768, 16, 256, 64, 128),  # the served prefill
+                                              (14, 2, 64, 32, 16),  # 7 heads a row
+                                              (26, 2, 256, 64, 128),  # 13: groups of 7 and 6
+                                              (6, 2, 300, 16, 136),  # two segments of L
+                                              (4, 2, 70, 10, 6),  # 4-byte copies
+                                              (3, 1, 40, 7, 5)])  # odd P: scalar stores
+@pytest.mark.parametrize("x_scale,bc_scale", [(1.0, 1.0), (1e3, 10.0)])
+def test_ssd_intra_chunk_kernel_matches_plain(cuda, full_f32, cells, rows, L, P, N, x_scale,
+                                              bc_scale):
     """At the reference's 2e-4; cells share B/C rows in groups of
-    cells // rows."""
-    x = _t(RNG.normal(size=(cells, L, P)).astype(np.float32), cuda)
-    dt = _t(RNG.uniform(0.01, 0.2, (cells, L)).astype(np.float32), cuda)
-    cum = torch.cumsum(-dt * _t(RNG.uniform(0.2, 1.0, (cells, L)).astype(np.float32), cuda), 1)
-    B = _t(RNG.normal(size=(rows, L, N)).astype(np.float32), cuda)
-    C = _t(RNG.normal(size=(rows, L, N)).astype(np.float32), cuda)
+    cells // rows.  With x x 1e3 and B, C x 10 a TF32 low part that is wrong
+    or dropped shows at 2^-11 of the outputs' scale; Y and S are divided by
+    that scale (x·B·C, x·B) before the comparison: float32 sums in two
+    orders already differ by more than 2e-4 absolute near the zeros of
+    outputs ~1e6."""
+    x, dt, cum, B, C = _ssd_inputs(cells, rows, L, P, N, cuda)
+    x, B, C = x * x_scale, B * bc_scale, C * bc_scale
     n = T_ssd.ssd_intra_chunk_cuda.launches
     y, s = T_ssd.ssd_intra_chunk_cuda(x, dt, cum, B, C)
     assert T_ssd.ssd_intra_chunk_cuda.launches == n + 1
     wy, ws = T_ssd.ssd_intra_chunk_plain(x, dt, cum, B, C)
-    torch.testing.assert_close(y, wy, rtol=2e-4, atol=2e-4)
-    torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
+    y_scale, s_scale = x_scale * bc_scale ** 2, x_scale * bc_scale
+    torch.testing.assert_close(y / y_scale, wy / y_scale, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s / s_scale, ws / s_scale, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("where", ["x", "B", "C"])
+def test_ssd_intra_chunk_kernel_keeps_non_finite_inputs(cuda, full_f32, where):
+    """A NaN (0/0 on the card; its negative in B) or an inf upstream stays
+    non-finite where the plain version's is, and the rest still agrees.
+    x's NaN sits at step 0, which every row weighs; B's and C's at step 100,
+    which rows i >= 100 weigh."""
+    x, dt, cum, B, C = _ssd_inputs(6, 2, 256, 16, 16, cuda)
+    nan = torch.zeros((), device=cuda) / 0
+    if where == "x":
+        x[1, 0, 3] = nan
+    elif where == "B":
+        B[0, 100, 5] = -nan
+    else:
+        C[1, 100, 7] = float("inf")
+    y, s = T_ssd.ssd_intra_chunk_cuda(x, dt, cum, B, C)
+    wy, ws = T_ssd.ssd_intra_chunk_plain(x, dt, cum, B, C)
+    assert not wy.isfinite().all()
+    for got, want in ((y, wy), (s, ws)):
+        assert torch.equal(got.isfinite(), want.isfinite())
+        if where != "C":  # an inf's small part is NaN where the plain version has ±inf
+            assert torch.equal(got.isnan(), want.isnan())
+        keep = want.isfinite()
+        torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_intra_chunk_rejects_misaligned_inputs(cuda):
+    """x, B and C are copied 16 bytes at a time."""
+    shifted = torch.zeros(4 * 16 * 8 + 1, device=cuda)[1:].view(4, 16, 8)
+    d = torch.zeros(4, 16, device=cuda)
+    b = torch.zeros(2, 16, 8, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        T_ssd.ssd_intra_chunk_cuda(shifted, d, d, b, b)
+    with pytest.raises(ValueError, match="16-byte"):
+        T_ssd.ssd_intra_chunk_cuda(torch.zeros(4, 16, 8, device=cuda), d, d, b, shifted[:2])
 
 
 def test_ssd_intra_chunk_kernel_selects_before_exp(cuda):
