@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one GPU, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --b2-bands   # B2 alone: step 5's two B2 timings
 
 1. prints the card (name, power limit) and toolchain;
 2. builds the hand-written CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -26,8 +27,14 @@
    0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape; B5's
    outputs over each cell's largest value, and a one-TF32-pass control must
    fail that check), and times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
-   events;
+   events.  B2 must equal its plain version bit for bit, on the P2 stripe
+   and on a uniform-random band of the stripe's shape, and is timed on both
+   (the ``glcm_bands`` line, with the kernel instance's occupancy);
 6. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+
+``--b2-bands`` builds the kernels, pulls the same P2 stripe and prints only
+the ``glcm_bands`` timings and checks: run from another checkout's root
+(with this file copied there), it times that checkout's B2 the same way.
 
 Any failed phase ends the script with a nonzero exit.  Float32 matmul and
 cuDNN TF32 are switched off and printed before any plain version runs: the
@@ -256,6 +263,56 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def p2_stripe(pan) -> tuple:
+    """P2's pipeline, its texture node, its second stripe and that stripe's
+    float32 band with its halo, as B2 receives it."""
+    p, m = TP.p2_textures(pan)
+    tex = p.inputs_of(m)[0]
+    region = StripeSplitter(n_splits=N_STRIPES).split(p.info(m).full_region, p.info(m))[1]
+    (x,) = stripe_inputs(p, tex, region)
+    return p, tex, region, x[..., 0].to(torch.float32).contiguous()
+
+
+def b2_bands(band: torch.Tensor, args: tuple) -> dict:
+    """B2 on the P2 stripe's ``band`` and on a uniform-random band of its
+    shape (drawn on the card from seed 0 over [vmin, vmax)): each must equal
+    the plain version bit for bit.  Records the kernel's time, the number
+    of differing elements and the largest |difference| (both 0), and the
+    occupied bins per pixel (the kernel's work grows with them)."""
+    vmin, vmax = args[3], args[4]
+    gen = torch.Generator(device=band.device).manual_seed(0)
+    uniform = vmin + torch.rand(band.shape, generator=gen, device=band.device) * (vmax - vmin)
+    out = {}
+    for name, b in (("stripe", band), ("uniform", uniform)):
+        got = glcm_k.glcm_features_cuda(b, *args)
+        want = glcm_k.glcm_features_plain(b, *args)
+        occupied = (glcm_k.glcm_counts_plain(b, *args) > 0).sum(dim=(-2, -1))
+        rec = dict(shape=list(b.shape), differing=int((got != want).sum()),
+                   max_abs_diff=float((got - want).abs().max()),
+                   occupied_bins=int(occupied.sum()),
+                   occupied_bins_per_pixel=float(occupied.float().mean()),
+                   occupied_bins_max=int(occupied.max()),
+                   ms=cuda_ms(lambda b=b: glcm_k.glcm_features_cuda(b, *args)))
+        del got, want, occupied
+        if rec["differing"] or not math.isfinite(rec["max_abs_diff"]):
+            raise AssertionError(f"glcm_features on the {name} band is not bit-identical to "
+                                 f"its plain version: {rec}")
+        out[name] = rec
+    return out
+
+
+def b2_bands_only() -> int:
+    """``--b2-bands``: build, pull P2's stripe, time B2 on both bands."""
+    card = card_line()
+    _build.library()
+    _, pan = make_spot6_pair(XS_SIDE, XS_SIDE, seed=0, device="cuda")
+    _, tex, region, band = p2_stripe(pan)
+    args = (tex.radius, tex.offset, tex.levels, tex.vmin, tex.vmax)
+    print(json.dumps({"glcm_bands": b2_bands(band, args), "inputs": str(region)}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def kernel_rows(xs, pan) -> tuple:
     """Each kernel against its plain version on one interior stripe of its
     run, plus the timings of the stages around it."""
@@ -288,28 +345,30 @@ def kernel_rows(xs, pan) -> tuple:
         "d2h_ms": cuda_ms(lambda: got.cpu(), reps=5),
     }
 
-    # B2 on a P2 stripe
-    p, m = TP.p2_textures(pan)
-    tex = p.inputs_of(m)[0]
-    region = StripeSplitter(n_splits=N_STRIPES).split(p.info(m).full_region, p.info(m))[1]
-    (x,) = stripe_inputs(p, tex, region)
-    band = x[..., 0].to(torch.float32).contiguous()
+    # B2 on a P2 stripe, and on a uniform-random band of its shape
+    p, tex, region, band = p2_stripe(pan)
     args = (tex.radius, tex.offset, tex.levels, tex.vmin, tex.vmax)
-    got = glcm_k.glcm_features_cuda(band, *args)
-    want = glcm_k.glcm_features_plain(band, *args)
-    torch.cuda.synchronize()
-    chk = compare("glcm_features", got.cpu().numpy(), want.cpu().numpy())
-    ms = cuda_ms(lambda: glcm_k.glcm_features_cuda(band, *args))
+    bands = b2_bands(band, args)
+    H, W = band.shape[0] - 2 * tex.halo, band.shape[1] - 2 * tex.halo
+    instance = glcm_k.glcm_occupancy(H, W, tex.radius, tex.offset, tex.levels)
+    instance_q16 = glcm_k.glcm_occupancy(H, W, tex.radius, tex.offset, glcm_k.MAX_LEVELS)
+    print(json.dumps({"glcm_bands": bands, "instance": instance,
+                      "instance_q16": instance_q16}), flush=True)
+    stripe = bands["stripe"]
+    chk = dict(max_abs_err=stripe["max_abs_diff"], mismatches=stripe["differing"],
+               bit_identical=True)
+    ms = stripe["ms"]
     plain_ms = cuda_ms(lambda: glcm_k.glcm_features_plain(band, *args), reps=5)
-    nnz = int((glcm_k.glcm_counts_plain(band, *args) > 0).sum())
-    px = got.shape[0] * got.shape[1]
-    nwin = (2 * tex.radius + 1) ** 2
-    # per pixel: 2 quantizes (4 flops) and one bin update (3 int ops) per
-    # window pair, a scan of Q^2 bins, ~8 flops of epilogue; ~28 flops per
-    # nonzero bin (the kernel skips zero bins)
-    ops = px * (nwin * (2 * 4 + 3) + tex.levels ** 2 + 8) + nnz * 28
-    bnd = bound(nbytes(band, got), ops)
+    px = H * W
+    k = 2 * tex.radius + 1
+    # one quantize (4 flops) per input sample; per pixel, one bin update (3
+    # int ops) for each pair entering or leaving the window as it slides a
+    # row (2k), ~8 flops of epilogue; ~28 flops per occupied bin
+    ops = band.numel() * 4 + px * (2 * k * 3 + 8) + stripe["occupied_bins"] * 28
+    out_bytes = px * 5 * 4
+    bnd = bound(nbytes(band) + out_bytes, ops)
     rows.append(("glcm_features", "P2", str(region), chk, ms, plain_ms, bnd, None))
+    got = glcm_k.glcm_features_cuda(band, *args)
     stages["P2"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(tex)[0], region.pad(tex.halo)), reps=5),
         "kernel_ms": ms,
@@ -618,9 +677,14 @@ def lm_kernel_rows(captured: dict) -> list:
     return rows
 
 
-def main() -> int:
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one", file=sys.stderr)
+        return 2
+    if argv == ["--b2-bands"]:
+        return b2_bands_only()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -697,4 +761,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

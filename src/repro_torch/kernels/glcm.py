@@ -9,13 +9,16 @@ E[(i - mu)^2]), not as the Pallas body does (E[i^2] - mu^2).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-#: the kernel keeps Q^2 bins per thread in shared memory (Q = 16: 128 KB)
+#: the kernel's pair codes q1·S + q2 (S = 8, or 16 above 8 levels) index at
+#: most 256 bins, and each thread keeps its S^2 counts as bytes in shared
+#: memory (Q = 16: 256 B a thread, 64 KB a block of 256 threads)
 MAX_LEVELS = 16
 
 
@@ -107,6 +110,8 @@ def glcm_features_cuda(
     """Launch the B2 kernel on a float32 CUDA band (same contract as
     :func:`glcm_features_plain`); counts its launches in ``.launches``."""
     _build.require("glcm_features", "band", band, 2)
+    if radius < 0:
+        raise ValueError(f"glcm_features: radius must be >= 0, got {radius}")
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"glcm_features: levels must be in [1, {MAX_LEVELS}], got {levels}")
     dr, dc = offset
@@ -125,3 +130,24 @@ def glcm_features_cuda(
 
 
 glcm_features_cuda.launches = 0
+
+
+def glcm_occupancy(
+    H: int, W: int, radius: int = 2, offset: Tuple[int, int] = (0, 1), levels: int = 8,
+) -> dict:
+    """The kernel instance :func:`glcm_features_cuda` launches for an (H, W)
+    output, without launching it: resident blocks per SM (CUDA's occupancy
+    calculator), threads per block, dynamic shared memory, count width,
+    whether the band is staged in shared memory, the unrolled radius (0:
+    any), and the registers and local (stack and spill) bytes per thread.
+    Needs the card."""
+    fn = _build.library().glcm_features_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    info = (ctypes.c_int * 8)()
+    err = fn(H, W, radius, offset[0], offset[1], levels, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"glcm_occupancy: CUDA error {err}")
+    keys = ("blocks_per_sm", "threads", "smem_bytes", "count_bits", "tiled", "unrolled_radius",
+            "registers", "local_bytes")
+    return dict(zip(keys, list(info)))

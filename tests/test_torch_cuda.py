@@ -55,15 +55,72 @@ def test_pansharpen_kernel_matches_plain(cuda, shape, bands, radius):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
 
 
-@pytest.mark.parametrize("shape", [(16, 16), (32, 24), (40, 56), (37, 301)])
-@pytest.mark.parametrize("radius,offset,levels", [(1, (0, 1), 4), (2, (1, 1), 8), (2, (-1, 2), 16)])
+def _glcm_band(kind, shape):
+    if kind == "smooth":  # a textured scene: few occupied bins per window
+        y, x = np.mgrid[: shape[0], : shape[1]]
+        a = 2048 + 1500 * np.sin(y / 7.0) * np.cos(x / 5.0) + RNG.normal(0, 60, shape)
+    elif kind == "constant":  # var = 0: the corr = 0 branch
+        a = np.full(shape, 1234.0)
+    elif kind == "clipped":  # below vmin and above vmax (500, 3500 below)
+        a = RNG.uniform(-3000, 7000, shape)
+    elif kind == "uniform":  # up to (2R+1)^2 occupied bins
+        a = RNG.uniform(0, 4096, shape)
+    else:
+        a = RNG.integers(0, 4096, shape)
+    return a.astype(np.float32)
+
+
+def _glcm_bit_identical(band, radius, offset, levels, vmin=0.0, vmax=4096.0):
+    got = T_glcm.glcm_features_cuda(band, radius, offset, levels, vmin, vmax)
+    want = T_glcm.glcm_features_plain(band, radius, offset, levels, vmin, vmax)
+    assert got.shape == want.shape
+    assert torch.equal(got, want), ((got != want).sum().item(), (got - want).abs().max().item())
+
+
+# the tile is 32 wide and 32 tall (16-bit counts: 16): 1 x 1, 37 x 301 and
+# 70 x 40 are not multiples of it, 70 rows span three tiles
+@pytest.mark.parametrize("shape", [(16, 16), (32, 24), (40, 56), (37, 301), (1, 1), (70, 40)])
+@pytest.mark.parametrize("radius,offset,levels", [
+    (1, (0, 1), 4), (2, (1, 1), 8), (2, (-1, 2), 16), (2, (0, 1), 16), (0, (0, 1), 8),
+    (3, (0, 1), 8), (8, (0, 1), 16), (2, (0, 0), 8), (2, (1, -1), 8), (2, (-2, 0), 8),
+])
 def test_glcm_kernel_matches_plain(cuda, shape, radius, offset, levels):
     halo = radius + max(abs(offset[0]), abs(offset[1]))
     H, W = shape
-    band = _t(RNG.integers(0, 4096, (H + 2 * halo, W + 2 * halo)).astype(np.float32), cuda)
-    got = T_glcm.glcm_features_cuda(band, radius, offset, levels, 0.0, 4096.0)
-    want = T_glcm.glcm_features_plain(band, radius, offset, levels, 0.0, 4096.0)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    band = _t(_glcm_band("integers", (H + 2 * halo, W + 2 * halo)), cuda)
+    _glcm_bit_identical(band, radius, offset, levels)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "constant", "clipped", "uniform"])
+@pytest.mark.parametrize("radius,levels", [(2, 8), (2, 16), (3, 8)])
+def test_glcm_kernel_bands_match_plain(cuda, kind, radius, levels):
+    halo = radius + 1
+    band = _t(_glcm_band(kind, (70 + 2 * halo, 301 + 2 * halo)), cuda)
+    _glcm_bit_identical(band, radius, (0, 1), levels, 500.0, 3500.0)
+
+
+@pytest.mark.parametrize("radius,offset,levels,bits,tiled,unrolled", [
+    (2, (0, 1), 8, 8, 1, 2),  # P2's served instance
+    (5, (0, 1), 16, 8, 1, 0),  # any radius with byte counts
+    (8, (0, 1), 16, 16, 1, 0),  # (2R+1)^2 = 289 > 255: 16-bit counts
+    (1, (0, 220), 8, 32, 0, 0),  # a halo too wide for shared memory
+    (1, (-200, 5), 16, 32, 0, 0),
+])
+def test_glcm_kernel_instances_match_plain(cuda, radius, offset, levels, bits, tiled, unrolled):
+    halo = radius + max(abs(offset[0]), abs(offset[1]))
+    H, W = 5, 7
+    info = T_glcm.glcm_occupancy(H, W, radius, offset, levels)
+    assert (info["count_bits"], info["tiled"], info["unrolled_radius"]) == (bits, tiled, unrolled)
+    assert info["blocks_per_sm"] >= 1
+    band = _t(_glcm_band("smooth", (H + 2 * halo, W + 2 * halo)), cuda)
+    _glcm_bit_identical(band, radius, offset, levels)
+
+
+def test_glcm_kernel_counts_its_launches(cuda):
+    band = torch.zeros(12, 14, device=cuda)
+    n = T_glcm.glcm_features_cuda.launches
+    T_glcm.glcm_features_cuda(band, 2, (0, 1), 8)
+    assert T_glcm.glcm_features_cuda.launches == n + 1
 
 
 @pytest.mark.parametrize("hs,n_iter", [(1, 1), (2, 3), (3, 4)])
@@ -90,6 +147,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         T_glcm.glcm_features_cuda(torch.zeros(20, 20, device=cuda), 2, (0, 1), 17)
     with pytest.raises(ValueError, match="CUDA tensor"):
         T_glcm.glcm_features_cuda(torch.zeros(20, 20), 2, (0, 1), 8)
+    with pytest.raises(ValueError, match="radius"):
+        T_glcm.glcm_features_cuda(torch.zeros(20, 20, device=cuda), -1, (0, 1), 8)
 
 
 def test_dispatch_launches_on_cuda_tensors(cuda):
