@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b2-bands   # B2 alone: step 5's two B2 timings
+    python3 chip_smoke.py --b3-bands   # B3 alone: step 5's two B3 timings
 
 1. prints the card (name, power limit) and toolchain;
 2. builds the hand-written CUDA kernels (``src/repro_torch/kernels/csrc``)
@@ -29,12 +30,18 @@
    fail that check), and times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
    events.  B2 must equal its plain version bit for bit, on the P2 stripe
    and on a uniform-random band of the stripe's shape, and is timed on both
-   (the ``glcm_bands`` line, with the kernel instance's occupancy);
+   (the ``glcm_bands`` line, with the kernel instance's occupancy).  B3
+   likewise, on the P5 stripe and on a near-threshold band of its shape
+   (the ``meanshift_bands`` line, with the members per pixel in each
+   iteration, the instance's occupancy and the pinned arithmetic's issue
+   floor);
 6. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 ``--b2-bands`` builds the kernels, pulls the same P2 stripe and prints only
 the ``glcm_bands`` timings and checks: run from another checkout's root
 (with this file copied there), it times that checkout's B2 the same way.
+``--b3-bands`` does the same for B3 on the P5 stripe (``meanshift_bands``,
+without the member counts and the occupancy, which older checkouts lack).
 
 Any failed phase ends the script with a nonzero exit.  Float32 matmul and
 cuDNN TF32 are switched off and printed before any plain version runs: the
@@ -77,6 +84,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
 TF32_TENSOR_FLOPS_PER_S = 495e12
+#: one FP32 instruction per lane per clock (132 SMs x 128 lanes x 1.98 GHz);
+#: the FP32 peak above counts an FMA as two operations
+FP32_ISSUE_PER_S = FP32_FLOPS_PER_S / 2
 
 XS_SIDE = 2048  # one SPOT-6 product tile: XS 2048^2 x 4 at 6 m, PAN 8192^2 at 1.5 m
 N_STRIPES = 8
@@ -123,6 +133,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+#: B3's instance at P5's 4 bands and hs 3 (its mangled name's template part)
+B3_SERVED = "meanshift_blockedILi4ELi3E"
+
+
+def ptxas_of(log: str, name: str) -> list:
+    """ptxas's lines (registers, stack and spills) for the kernels whose
+    mangled names hold ``name``."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            keep = name in ln
+        if keep:
+            out.append(ln.strip())
+    return out
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -313,6 +339,59 @@ def b2_bands_only() -> int:
     return 0
 
 
+def p5_stripe(xs) -> tuple:
+    """P5's pipeline, its mean-shift node, its second stripe and that
+    stripe's input with its halo, as B3 receives it (before the float32
+    cast)."""
+    p, m = TP.p5_meanshift(xs, **P5_KW)
+    msf = p.inputs_of(m)[0]
+    region = StripeSplitter(n_splits=N_STRIPES).split(p.info(m).full_region, p.info(m))[1]
+    (x,) = stripe_inputs(p, msf, region)
+    return p, msf, region, x
+
+
+def b3_bands(x: torch.Tensor, args: tuple, with_members: bool = True) -> dict:
+    """B3 on the P5 stripe's input ``x`` and on a near-threshold band of its
+    shape (uniform over [0, 2 hr) in each band, drawn on the card from seed
+    0): each must equal the plain version bit for bit.  Records the kernel's
+    time, the number of differing elements and the largest |difference|
+    (both 0) and, with ``with_members``, the window members summed over the
+    pixels in each iteration (the accumulate's data-dependent work)."""
+    hr = args[1]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    near = torch.rand(x.shape, generator=gen, device=x.device) * (2 * hr)
+    out = {}
+    for name, b in (("stripe", x), ("near_threshold", near)):
+        got = ms_k.meanshift_cuda(b, *args)
+        want = ms_k.meanshift_plain(b, *args)
+        rec = dict(shape=list(b.shape), differing=int((got != want).sum()),
+                   max_abs_diff=float((got - want).abs().max()),
+                   ms=cuda_ms(lambda b=b: ms_k.meanshift_cuda(b, *args)))
+        if with_members:
+            px = got.shape[0] * got.shape[1]
+            rec["members"] = ms_k.meanshift_members(b, *args)
+            rec["members_per_pixel"] = [n / px for n in rec["members"]]
+        del got, want
+        if rec["differing"] or not math.isfinite(rec["max_abs_diff"]):
+            raise AssertionError(f"meanshift on the {name} band is not bit-identical to its "
+                                 f"plain version: {rec}")
+        out[name] = rec
+    return out
+
+
+def b3_bands_only() -> int:
+    """``--b3-bands``: build, pull P5's stripe, time B3 on both bands."""
+    card = card_line()
+    _build.library()
+    xs, _ = make_spot6_pair(XS_SIDE, XS_SIDE, seed=0, device="cuda")
+    _, msf, region, x = p5_stripe(xs)
+    args = (msf.hs, msf.hr, msf.n_iter)
+    bands = b3_bands(x.to(torch.float32).contiguous(), args, with_members=False)
+    print(json.dumps({"meanshift_bands": bands, "inputs": str(region)}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def kernel_rows(xs, pan) -> tuple:
     """Each kernel against its plain version on one interior stripe of its
     run, plus the timings of the stages around it."""
@@ -375,26 +454,32 @@ def kernel_rows(xs, pan) -> tuple:
         "d2h_ms": cuda_ms(lambda: got.cpu(), reps=5),
     }
 
-    # B3 on a P5 stripe
-    p, m = TP.p5_meanshift(xs, **P5_KW)
-    msf = p.inputs_of(m)[0]
-    region = StripeSplitter(n_splits=N_STRIPES).split(p.info(m).full_region, p.info(m))[1]
-    (x,) = stripe_inputs(p, msf, region)
+    # B3 on a P5 stripe, and on a near-threshold band of its shape
+    p, msf, region, x = p5_stripe(xs)
     xf = x.to(torch.float32).contiguous()
     args = (msf.hs, msf.hr, msf.n_iter)
-    got = ms_k.meanshift_cuda(xf, *args)
-    want = ms_k.meanshift_plain(xf, *args)
-    torch.cuda.synchronize()
-    chk = compare("meanshift", got.cpu().numpy(), want.cpu().numpy())
-    ms = cuda_ms(lambda: ms_k.meanshift_cuda(xf, *args))
+    bands = b3_bands(xf, args)
+    stripe = bands["stripe"]
+    H, W, nb = xf.shape[0] - 2 * msf.hs, xf.shape[1] - 2 * msf.hs, xf.shape[2]
+    px, K = H * W, (2 * msf.hs + 1) ** 2
+    # per pixel, iteration and window offset: B subs, B muls, B - 1 adds and
+    # a compare; B divides per pixel and iteration; B + 1 adds (num and den)
+    # per member, counted from these inputs
+    ops = px * msf.n_iter * (K * 3 * nb + nb) + sum(stripe["members"]) * (nb + 1)
+    bnd = bound(nbytes(xf) + px * nb * 4, ops)
+    # the pinned arithmetic cannot use FMAs, and its predicated adds issue
+    # whether or not the offset is a member: 4B + 1 FP32 instructions per
+    # pixel, iteration and offset, one issue slot each
+    floor_ms = px * msf.n_iter * K * (4 * nb + 1) / FP32_ISSUE_PER_S * 1e3
+    instance = ms_k.meanshift_occupancy(H, W, nb, msf.hs)
+    print(json.dumps({"meanshift_bands": bands, "instance": instance,
+                      "bound": dict(bnd, issue_floor_ms=floor_ms)}), flush=True)
+    chk = dict(max_abs_err=stripe["max_abs_diff"], mismatches=stripe["differing"],
+               bit_identical=True)
+    ms = stripe["ms"]
     plain_ms = cuda_ms(lambda: ms_k.meanshift_plain(xf, *args), reps=5)
-    px, nb = got.shape[0] * got.shape[1], got.shape[2]
-    # per pixel, iteration and window offset: B subs, B muls, B-1 adds and a
-    # compare; B divides per iteration.  The data-dependent num/den adds are
-    # not counted, so this bound is a lower bound.
-    ops = px * msf.n_iter * ((2 * msf.hs + 1) ** 2 * (3 * nb) + nb)
-    bnd = bound(nbytes(xf, got), ops)
     rows.append(("meanshift", "P5", str(region), chk, ms, plain_ms, bnd, None))
+    got = ms_k.meanshift_cuda(xf, *args)
     stages["P5"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(msf)[0], region.pad(msf.hs)), reps=5),
         "cast_ms": cuda_ms(lambda: x.to(torch.float32), reps=5),
@@ -683,6 +768,8 @@ def main(argv: list) -> int:
         return 2
     if argv == ["--b2-bands"]:
         return b2_bands_only()
+    if argv == ["--b3-bands"]:
+        return b3_bands_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -707,8 +794,8 @@ def main(argv: list) -> int:
     build_s = time.perf_counter() - t0
     log = lib_path.with_suffix(".log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(json.dumps({"build": {"seconds": build_s, "library": lib_path.name, "ptxas": ptxas}}),
-          flush=True)
+    print(json.dumps({"build": {"seconds": build_s, "library": lib_path.name, "ptxas": ptxas,
+                                "meanshift_served": ptxas_of(log, B3_SERVED)}}), flush=True)
 
     xs, pan = make_spot6_pair(XS_SIDE, XS_SIDE, seed=0, device="cuda")
     # host copies of the exact source pixels, for the CPU pulls (torch's CPU

@@ -14,6 +14,8 @@ oracle's (H, W, (2hs+1)^2, B) window stack.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -30,6 +32,19 @@ def _hr2(hr: float) -> float:
 
 def meanshift_plain(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> torch.Tensor:
     """x: (H + 2hs, W + 2hs, B) pre-padded → (H, W, B) float32."""
+    return _mode_search(x, hs, hr, n_iter)
+
+
+def meanshift_members(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> list:
+    """The window members (offsets with d2 <= hr^2) summed over all pixels,
+    one count per iteration, as :func:`meanshift_plain` finds them: the
+    kernel's data-dependent work (B + 1 adds per member)."""
+    dens = []
+    _mode_search(x, hs, hr, n_iter, dens)
+    return [int(d.sum().item()) for d in dens]
+
+
+def _mode_search(x: torch.Tensor, hs: int, hr: float, n_iter: int, dens=None) -> torch.Tensor:
     H, W, B = x.shape[0] - 2 * hs, x.shape[1] - 2 * hs, x.shape[2]
     x = x.to(torch.float32)
     hr2 = _hr2(hr)
@@ -49,6 +64,8 @@ def meanshift_plain(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> torch.T
                 m = (d2 <= hr2).to(torch.float32)
                 num = num + xw * m[..., None]
                 den = den + m
+        if dens is not None:
+            dens.append(den)
         v = num / torch.clamp_min(den, 1e-12)[..., None]
     return v
 
@@ -72,3 +89,21 @@ def meanshift_cuda(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> torch.Te
 
 
 meanshift_cuda.launches = 0
+
+
+def meanshift_occupancy(H: int, W: int, bands: int, hs: int) -> dict:
+    """The kernel instance :func:`meanshift_cuda` launches for an (H, W,
+    bands) output at ``hs``, without launching it: resident blocks per SM
+    (CUDA's occupancy calculator), threads per block, dynamic shared memory,
+    the unrolled hs (0: the generic instance), pixels per thread, and the
+    registers and local (stack and spill) bytes per thread.  Needs the card."""
+    fn = _build.library().meanshift_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    info = (ctypes.c_int * 7)()
+    err = fn(H, W, bands, hs, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"meanshift_occupancy: CUDA error {err}")
+    keys = ("blocks_per_sm", "threads", "smem_bytes", "unrolled_hs", "pixels_per_thread",
+            "registers", "local_bytes")
+    return dict(zip(keys, list(info)))

@@ -123,14 +123,66 @@ def test_glcm_kernel_counts_its_launches(cuda):
     assert T_glcm.glcm_features_cuda.launches == n + 1
 
 
-@pytest.mark.parametrize("hs,n_iter", [(1, 1), (2, 3), (3, 4)])
-@pytest.mark.parametrize("bands", [1, 3, 4])
-def test_meanshift_kernel_is_bit_identical_to_plain(cuda, hs, n_iter, bands):
-    H, W = 37, 45
+# the blocked instance's tile is 64 x 16 pixels, 4 to a thread: 5 rows are
+# below one tile, 45 and 131 columns are not multiples of 4 or of 64; hs 0
+# and 5 run the generic instance
+@pytest.mark.parametrize("hs,n_iter", [(1, 1), (2, 3), (3, 4), (0, 2), (5, 2)])
+@pytest.mark.parametrize("bands", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("H,W", [(37, 45), (5, 131)])
+def test_meanshift_kernel_is_bit_identical_to_plain(cuda, hs, n_iter, bands, H, W):
     x = _t(RNG.uniform(0, 500, (H + 2 * hs, W + 2 * hs, bands)).astype(np.float32), cuda)
     got = T_ms.meanshift_cuda(x, hs, 120.0, n_iter)
     want = T_ms.meanshift_plain(x, hs, 120.0, n_iter)
     assert torch.equal(got, want), (got != want).sum().item()
+
+
+# uniform over [0, 2 hr): most memberships sit near the cut, as on the
+# near-threshold band of chip_smoke.py; the unaligned view (one float in)
+# takes the generic instance
+@pytest.mark.parametrize("hs", [1, 2, 3, 4])
+@pytest.mark.parametrize("bands", [4, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_meanshift_kernel_near_threshold_is_bit_identical(cuda, hs, bands, offset):
+    H, W = 70, 301
+    n = (H + 2 * hs) * (W + 2 * hs) * bands
+    flat = _t(RNG.uniform(0, 240.0, n + 1).astype(np.float32), cuda)
+    x = flat[offset : offset + n].view(H + 2 * hs, W + 2 * hs, bands)
+    got = T_ms.meanshift_cuda(x, hs, 120.0, 4)
+    want = T_ms.meanshift_plain(x, hs, 120.0, 4)
+    assert torch.equal(got, want), (got != want).sum().item()
+
+
+# the kernel divides by a reciprocal shared by a pixel's bands where den >= 1
+# and every |num| is in [2^-100, 2^100], and by __fdiv_rn elsewhere: huge
+# sums, sums near or below float32's smallest normal, and no members
+@pytest.mark.parametrize("scale,hr", [
+    (1.0, 120.0), (1e17, 1.2e19), (1e30, 1e18), (1e-33, 1.2e-31), (1e-40, 1.0), (1.0, float("nan")),
+])
+def test_meanshift_kernel_divides_like_plain_at_any_scale(cuda, scale, hr):
+    x = _t((RNG.uniform(0, 240.0, (37 + 6, 131 + 6, 4)) * scale).astype(np.float32), cuda)
+    got = T_ms.meanshift_cuda(x, 3, hr, 4)
+    want = T_ms.meanshift_plain(x, 3, hr, 4)
+    assert torch.equal(got, want), (got != want).sum().item()
+
+
+@pytest.mark.parametrize("hs,bands,unrolled,ppt", [
+    (3, 4, 3, 4),  # P5's served instance
+    (1, 1, 1, 4), (2, 8, 2, 4),
+    (0, 4, 0, 1), (5, 3, 0, 1),  # the generic instance
+])
+def test_meanshift_instances(cuda, hs, bands, unrolled, ppt):
+    info = T_ms.meanshift_occupancy(256, 2048, bands, hs)
+    assert (info["unrolled_hs"], info["pixels_per_thread"]) == (unrolled, ppt)
+    assert info["blocks_per_sm"] >= 1
+    if (hs, bands) == (3, 4):  # no local memory; four blocks of 8 warps per SM
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 4, info
+
+
+def test_meanshift_kernel_counts_its_launches(cuda):
+    x = torch.zeros(12, 14, 4, device=cuda)
+    n = T_ms.meanshift_cuda.launches
+    T_ms.meanshift_cuda(x, 3, 120.0, 4)
+    assert T_ms.meanshift_cuda.launches == n + 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -78,8 +78,9 @@ def test_pansharpen_plain_exact_at_stripe_width():
     np.testing.assert_allclose(got, exact, rtol=2e-6, atol=0)
 
 
-@pytest.mark.parametrize("hs,n_iter", [(1, 1), (2, 3)])
-@pytest.mark.parametrize("bands", [1, 3])
+# (3, 4) with 4 bands is P5's served setting (hs 3, n_iter 4, XS's 4 bands)
+@pytest.mark.parametrize("hs,n_iter", [(1, 1), (2, 3), (3, 4)])
+@pytest.mark.parametrize("bands", [1, 3, 4])
 def test_meanshift_plain_matches_oracle_and_pallas(hs, n_iter, bands):
     H, W = 24, 20
     x = RNG.uniform(0, 500, size=(H + 2 * hs, W + 2 * hs, bands)).astype(np.float32)
