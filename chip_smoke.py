@@ -14,6 +14,15 @@
    8192 x 8192), each with every kernel's launch count set to 0 just before
    and read just after, and holds a corner and an interior region of each
    output against the port's CPU pull of the same pipeline;
+   then streams the paths that run no hand kernel the same way, with every
+   launch count held at 0: P1 (orthorectification of PAN, stripes 1024 x
+   8192), P4 (random-forest classes of XS; the forest trained from the
+   card's pixels must equal the one trained from the CPU's copy), P6 (XS to
+   uint8), P7 (XS bicubic x 4, 8192 x 8192 x 4 float32), P9 (max-NDVI
+   composite of three XS-sized scenes) and STATS (XS through the persistent
+   ``BandStatistics``, its state held against float64 numpy); for each,
+   one interior stripe's stages (input pull, ``generate``, device-to-host
+   copy, in CUDA events) and a ``torch.profiler`` run (device idle share);
 4. serves olmo-1b, gemma-2b and mamba2-780m at their published widths and
    depths from ``repro_torch.serve.ServeEngine`` on ``cuda`` (random
    bfloat16 weights from a seed): 4 requests of 1024 prompt tokens, 32
@@ -68,7 +77,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
-from repro_torch.core import ImageRegion, StripeSplitter  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ImageRegion,
+    PersistentFilter,
+    Pipeline,
+    StripeSplitter,
+    windowed_requests,
+)
+from repro_torch.filters import BandStatistics  # noqa: E402
 from repro_torch.kernels import LAUNCHERS, _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import glcm as glcm_k  # noqa: E402
@@ -76,7 +92,13 @@ from repro_torch.kernels import meanshift as ms_k  # noqa: E402
 from repro_torch.kernels import pansharpen as ps_k  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
-from repro_torch.raster import ArraySource, RasterReader, make_spot6_pair  # noqa: E402
+from repro_torch.raster import (  # noqa: E402
+    ArraySource,
+    MemoryMapper,
+    RasterReader,
+    SyntheticScene,
+    make_spot6_pair,
+)
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 #: H100 SXM data-sheet peaks (at the full 700 W power limit)
@@ -99,7 +121,16 @@ TOL = {  # the reference's own tolerances (tests/test_kernels.py)
     "flash_attention": dict(rtol=2e-2, atol=2e-2),  # bfloat16 inputs and output
     "flash_attention_f32": dict(rtol=2e-4, atol=2e-4),
     "ssd_intra_chunk": dict(rtol=2e-4, atol=2e-4),
+    # the paths without a hand kernel: the bicubic warps at the reference's
+    # tolerance (tests/test_pipelines_p1_p7.py), the rest equal
+    "P1": dict(rtol=1e-4, atol=1e-3),
+    "P7": dict(rtol=1e-4, atol=1e-3),
+    "P4": dict(rtol=0, atol=0),
+    "P6": dict(rtol=0, atol=0),
+    "P9": dict(rtol=0, atol=0),
+    "STATS": dict(rtol=0, atol=0),
 }
+P9_SEEDS = (0, 1, 2)  # the composite's three dates
 #: the serving phase: one batch of requests per model, at published widths
 SERVE_MODELS = ("olmo-1b", "gemma-2b", "mamba2-780m")
 BATCH, PROMPT, NEW_TOKENS, MAX_SEQ = 4, 1024, 32, 1056
@@ -272,6 +303,109 @@ def run_memory(name: str, kernel: str, src, src_np, **kw) -> dict:
     return dict(wall_s=walls, pixels=res.pixels_processed, launches=counts,
                 finite_share=float(np.isfinite(got).mean()),
                 regions=check_regions(kernel, got, cpu))
+
+
+def stripe_stages(pipeline, mapper) -> dict:
+    """One interior stripe of the node feeding ``mapper``, in CUDA events:
+    the pull of its inputs (median of 5), its ``generate`` on them (median
+    of 20; a persistent node's ``accumulate`` too) and the device-to-host
+    copy of its output (median of 5)."""
+    node = pipeline.inputs_of(mapper)[0]
+    info = pipeline.info(mapper)
+    region = StripeSplitter(n_splits=N_STRIPES).split(info.full_region, info)[1]
+    ups = pipeline.inputs_of(node)
+    infos = [pipeline.info(u) for u in ups]
+    # a warp reads the windows the pull gives it, and their origins
+    reqs, _ = windowed_requests(node, region.size, node.requested_region(region, *infos), infos)
+    inputs = [pipeline.pull(u, r) for u, r in zip(ups, reqs)]
+    kw = {}
+    if node.needs_origin:
+        kw = dict(origin=region.index, input_origins=tuple(r.index for r in reqs))
+    out = node.generate(region, *inputs, **kw)
+    rec = dict(stripe=str(region), inputs=[list(t.shape) for t in inputs],
+               inputs_pull_ms=cuda_ms(lambda: [pipeline.pull(u, r) for u, r in zip(ups, reqs)],
+                                      reps=5),
+               generate_ms=cuda_ms(lambda: node.generate(region, *inputs, **kw), reps=20),
+               d2h_ms=cuda_ms(lambda: out.cpu(), reps=5))
+    if isinstance(node, PersistentFilter):
+        state = node.reset(out.device)
+        rec["accumulate_ms"] = cuda_ms(lambda: node.accumulate(state, region, *inputs), reps=20)
+    return rec
+
+
+def kernel_free_runs(xs, pan, xs_np, pan_np) -> dict:
+    """P1, P4, P6, P7, P9 and STATS streamed on the card, each held against
+    the port's CPU pull of the same graph over host copies of the card's
+    source pixels; no hand kernel may launch on these paths."""
+    cpu = lambda a: ArraySource(a, device="cpu")  # noqa: E731
+    split = lambda: StripeSplitter(n_splits=N_STRIPES)  # noqa: E731
+    runs = {}
+
+    def stream(name, build_card, build_cpu, **extra):
+        walls, (res, mapper), counts = timed_runs(lambda: TP.run_pipeline(
+            build_card(), splitter=split(), device="cuda"))
+        profiled = profile_window(lambda: TP.run_pipeline(
+            build_card(), splitter=split(), device="cuda"))
+        if any(counts.values()):
+            raise AssertionError(f"{name}: hand kernels launched on a kernel-free path: {counts}")
+        got = mapper.result
+        rec = dict(wall_s=walls, pixels=res.pixels_processed, launches=counts,
+                   shape=list(got.shape), dtype=str(got.dtype),
+                   finite_share=float(np.isfinite(got).mean()),
+                   regions=check_regions(name, got, build_cpu()),
+                   stages=stripe_stages(*build_card()), profile=profiled, **extra)
+        runs[name] = rec
+        return res, got
+
+    # P1 on PAN: the reference's default sensor model (2 px of relief)
+    p1 = TP.p1_orthorectification(pan)
+    stream("P1", lambda: p1, lambda: TP.p1_orthorectification(cpu(pan_np)))
+
+    # P4 on XS: the forest from the card's pixels must be the CPU's
+    t0 = time.perf_counter()
+    p4 = TP.p4_classification(xs)
+    train_s = time.perf_counter() - t0
+    p4_cpu = TP.p4_classification(cpu(xs_np))
+    card_rf, cpu_rf = p4[0].inputs_of(p4[1])[0], p4_cpu[0].inputs_of(p4_cpu[1])[0]
+    same = all(np.array_equal(a, b) for a, b in zip(card_rf.arrays, cpu_rf.arrays))
+    if not (same and np.array_equal(card_rf.mean, cpu_rf.mean)
+            and np.array_equal(card_rf.std, cpu_rf.std)):
+        raise AssertionError("P4: the forest trained from the card's pixels differs "
+                             "from the one trained from the CPU's copy")
+    stream("P4", lambda: p4, lambda: p4_cpu, train_s=train_s,
+           nodes_per_tree=int(card_rf.arrays[0].shape[1]))
+
+    stream("P6", lambda: TP.p6_conversion(xs), lambda: TP.p6_conversion(cpu(xs_np)))
+    stream("P7", lambda: TP.p7_resampling(xs), lambda: TP.p7_resampling(cpu(xs_np)))
+
+    scenes = [SyntheticScene(XS_SIDE, XS_SIDE, bands=4, seed=k, device="cuda")
+              for k in P9_SEEDS]
+    scenes_np = [s.read_region() for s in scenes]
+    stream("P9", lambda: TP.p9_ndvi_composite(*scenes),
+           lambda: TP.p9_ndvi_composite(*[cpu(a) for a in scenes_np]))
+
+    def stats_graph(src):
+        p = Pipeline()
+        s = p.add(src)
+        return p, p.add(MemoryMapper(), [p.add(BandStatistics(4), [s])])
+
+    res, _ = stream("STATS", lambda: stats_graph(xs), lambda: stats_graph(cpu(xs_np)))
+    got = {k: v.cpu().numpy() for k, v in res.persistent_results["BandStatistics"].items()}
+    flat = xs_np.reshape(-1, 4).astype(np.float64)
+    want = dict(count=flat.shape[0], min=flat.min(0), max=flat.max(0), sum=flat.sum(0),
+                mean=flat.mean(0), std=flat.std(0))
+    err = {}
+    for key, ref in want.items():
+        if key in ("count", "min", "max"):
+            if not np.array_equal(got[key], ref):
+                raise AssertionError(f"STATS: {key} {got[key]} != {ref}")
+            err[key] = 0.0
+        else:
+            np.testing.assert_allclose(got[key], ref, rtol=1e-4, err_msg=f"STATS {key}")
+            err[key] = float((np.abs(got[key] - ref) / np.abs(ref)).max())
+    runs["STATS"]["state"] = {k: np.asarray(v).tolist() for k, v in got.items()}
+    runs["STATS"]["state_max_rel_err_vs_float64"] = err
+    return runs
 
 
 def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS_PER_S) -> dict:
@@ -640,44 +774,47 @@ def serve_model(arch: str) -> tuple:
     return record, box[0]
 
 
-def profile_serving(model, cfg, prompts) -> dict:
-    """``torch.profiler`` over one prefill and, separately, 8 decode steps:
-    host wall time, device busy time (the sum of kernel times; one stream)
-    and the kernels that take most of it."""
+def profile_window(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn``: host wall time, device
+    busy time (the sum of kernel times; one stream) and the kernels that
+    take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def window(fn) -> dict:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only: the kernels (CPU ops also carry the
-        # device time of the kernels they launch)
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        kernels.sort(key=lambda e: -e.self_device_time_total)
-        return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                    kernel_launches=sum(e.count for e in kernels),
-                    top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
-                         for e in kernels[:8]])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: the kernels (CPU ops also carry the device
+    # time of the kernels they launch)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                kernel_launches=sum(e.count for e in kernels),
+                top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                     for e in kernels[:8]])
 
+
+def profile_serving(model, cfg, prompts) -> dict:
+    """:func:`profile_window` over one prefill and, separately, 8 decode
+    steps."""
     out = {}
     box = {}
 
     def prefill():
         box["cache"] = TL.prefill(model, cfg, prompts, max_seq=MAX_SEQ)[1]
 
-    out["prefill"] = window(prefill)
+    out["prefill"] = profile_window(prefill)
     tok = prompts[:, -1:]
 
     def decode():
         for _ in range(8):
             TL.decode_step(model, cfg, box["cache"], tok)
 
-    out["decode_8_steps"] = window(decode)
+    out["decode_8_steps"] = profile_window(decode)
     return out
 
 
@@ -807,6 +944,7 @@ def main(argv: list) -> int:
         runs["P3"] = run_p3(xs, pan, xs_np, pan_np, Path(tmp))
     runs["P2"] = run_memory("P2", "glcm_features", pan, pan_np)
     runs["P5"] = run_memory("P5", "meanshift", xs, xs_np, **P5_KW)
+    runs.update(kernel_free_runs(xs, pan, xs_np, pan_np))
     for name, r in runs.items():
         r["mpix_s"] = [r["pixels"] / 1e6 / w for w in r["wall_s"]]
         print(json.dumps({"pipeline": name, **r}), flush=True)

@@ -6,10 +6,14 @@ from repro_torch.core.process_object import (
     GeoTransform,
     ImageInfo,
     Mapper,
+    PersistentFilter,
     ProcessObject,
+    Reduction,
     Source,
     boundary_pad,
     resolve_device,
+    window_request,
+    windowed_requests,
 )
 from repro_torch.core.pipeline import Pipeline
 from repro_torch.core.splitting import Splitter, StripeSplitter, TileSplitter
@@ -28,10 +32,14 @@ __all__ = [
     "GeoTransform",
     "ImageInfo",
     "Mapper",
+    "PersistentFilter",
     "ProcessObject",
+    "Reduction",
     "Source",
     "boundary_pad",
     "resolve_device",
+    "window_request",
+    "windowed_requests",
     "Pipeline",
     "Splitter",
     "StripeSplitter",

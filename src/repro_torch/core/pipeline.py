@@ -9,21 +9,27 @@ Border semantics: at *every* producer→consumer edge, the consumer's request is
 clamped against the producer's largest possible region and edge-replicated
 back out (ITK boundary condition), so requests may safely spill over borders.
 
+Windowed reads: a ``needs_origin`` node that declares
+:meth:`~repro_torch.core.process_object.ProcessObject.window_bound` has its
+drifting exact request replaced by a static-shape bounding window
+(``process_object.window_request``), as every pass of the reference does.
+
 Counterpart of ``repro.core.pipeline``'s eager path.  The plan layer
-(``describe_pull`` / ``lower_pull``, virtual modes, windowed reads) comes
-later.
+(``describe_pull`` / ``lower_pull``, virtual modes) comes later.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.process_object import (
     ImageInfo,
+    PersistentFilter,
     ProcessObject,
     Source,
     boundary_pad,
+    windowed_requests,
 )
 from repro_torch.core.region import ImageRegion
 
@@ -54,6 +60,9 @@ class Pipeline:
     def sources(self) -> List[Source]:
         return [n for n in self._nodes if isinstance(n, Source)]
 
+    def persistent_nodes(self) -> List[PersistentFilter]:
+        return [n for n in self._nodes if isinstance(n, PersistentFilter)]
+
     # -- phase 1: UpdateOutputInformation -------------------------------------
     def update_information(self) -> Dict[int, ImageInfo]:
         """Propagate metadata downstream (nodes are stored in insertion order,
@@ -74,11 +83,14 @@ class Pipeline:
         self,
         node: ProcessObject,
         out_region: ImageRegion,
+        persistent_hook: Optional[Callable] = None,
         _cache: Optional[Dict] = None,
     ) -> torch.Tensor:
         """Produce pixels of ``node`` for ``out_region`` (clamped + padded to
         the exact requested size).  Each distinct (node, region) request is
-        generated once per call."""
+        generated once per call.  ``persistent_hook(node, region, inputs)``
+        is invoked for every PersistentFilter generated (the streaming
+        executor uses it to accumulate state)."""
         infos = self.update_information()
         cache = _cache if _cache is not None else {}
         key = (id(node), out_region)
@@ -96,8 +108,21 @@ class Pipeline:
         else:
             in_infos = [infos[id(u)] for u in ups]
             reqs = node.requested_region(clamped, *in_infos)
-            inputs = [self.pull(u, r, cache) for u, r in zip(ups, reqs)]
-            data = node.generate(clamped, *inputs)
+            reqs, _ = windowed_requests(node, clamped.size, reqs, in_infos)
+            inputs = [
+                self.pull(u, r, persistent_hook, cache) for u, r in zip(ups, reqs)
+            ]
+            if isinstance(node, PersistentFilter) and persistent_hook is not None:
+                persistent_hook(node, clamped, inputs)
+            if node.needs_origin:
+                data = node.generate(
+                    clamped,
+                    *inputs,
+                    origin=clamped.index,
+                    input_origins=tuple(r.index for r in reqs),
+                )
+            else:
+                data = node.generate(clamped, *inputs)
         expect = (clamped.rows, clamped.cols)
         if tuple(data.shape[:2]) != expect:
             raise ValueError(

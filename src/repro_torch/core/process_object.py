@@ -10,13 +10,18 @@ the three-phase pull of ITK/OTB:
                             region at a time, as tensors on the pipeline's
                             device (HWC layout, as in ``repro``).
 
-Counterpart of ``repro.core.process_object``.  The plan-layer hooks and
-``PersistentFilter`` come with the plan layer.
+*Persistent* process objects (paper §II.C.1) accumulate state across
+regions (``reset`` / ``accumulate`` / ``synthesize``); the state lives on
+the pipeline's device.
+
+Counterpart of ``repro.core.process_object``.  The plan-layer hooks
+(``plan_key``, ``pointwise_fn``, the kernel fast path) come with the plan
+layer.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,14 +134,38 @@ class ProcessObject:
         return tuple(out_region for _ in range(self.n_inputs))
 
     # -- phase 3: data downstream ---------------------------------------------
+    #: set True on filters whose pixels depend on *absolute* output
+    #: coordinates (warps).  Their ``generate`` receives two extra kwargs:
+    #:   origin        — absolute (row0, col0) of the output region;
+    #:   input_origins — per input, absolute (row0, col0) of the array's
+    #:                   first pixel.
+    #: Such filters must do all coordinate arithmetic from these, never from
+    #: ``out_region.index`` or a recomputed requested region.
+    needs_origin: bool = False
+
     def generate(self, out_region: ImageRegion, *inputs: torch.Tensor) -> torch.Tensor:
         """Produce pixels for ``out_region``.
 
         ``inputs[i]`` has shape (req_rows, req_cols, bands_i) covering exactly
-        ``requested_region(out_region, ...)[i]`` (boundary-padded), on the
-        device the pipeline runs on.
+        ``requested_region(out_region, ...)[i]`` (boundary-padded), or the
+        window :func:`windowed_requests` put in its place, on the device the
+        pipeline runs on.
         """
         raise NotImplementedError
+
+    def window_bound(
+        self, out_size: Tuple[int, int], *input_infos: ImageInfo
+    ) -> Tuple[Optional[Tuple[int, int]], ...]:
+        """Static per-input bound on ``requested_region``'s size, valid for
+        any output region of ``out_size`` whatever its origin.
+
+        Consulted for ``needs_origin`` filters only: the pull replaces their
+        drifting exact request by a bounding window of this shape
+        (:func:`window_request`).  They sample by absolute coordinates with
+        edge-clamped taps, so the window gives what the exact request would.
+        ``None`` for an input keeps its exact request.
+        """
+        return tuple(None for _ in range(self.n_inputs))
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"
@@ -166,6 +195,64 @@ class Filter(ProcessObject):
     """Transforms data objects."""
 
 
+@dataclasses.dataclass
+class Reduction:
+    """How to combine per-region persistent state (paper: the MPI
+    many-to-one / many-to-many patterns of ``Synthesis``)."""
+
+    kind: str  # 'sum' | 'min' | 'max' | 'concat'
+
+    def combine(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.kind == "sum":
+            return a + b
+        if self.kind == "min":
+            return torch.minimum(a, b)
+        if self.kind == "max":
+            return torch.maximum(a, b)
+        if self.kind == "concat":
+            return torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)], dim=0)
+        raise ValueError(self.kind)
+
+
+class PersistentFilter(Filter):
+    """Persists state across region updates (paper §II.C.1, e.g. pixel
+    statistics).  ``state_reductions`` maps each key of the state dict to
+    the reduction that combines two states."""
+
+    #: dict key -> Reduction for each entry of the state dict
+    state_reductions: Dict[str, Reduction] = {}
+    #: mask-aware filters accept ``mask`` ((rows, cols, 1) bool,
+    #: broadcastable — True = valid output pixel) in ``accumulate`` and
+    #: ignore the other pixels
+    supports_mask: bool = False
+
+    def reset(self, device) -> Dict[str, torch.Tensor]:
+        """The empty state, as tensors on ``device`` (the pipeline's)."""
+        raise NotImplementedError
+
+    def accumulate(
+        self,
+        state: Dict[str, torch.Tensor],
+        out_region: ImageRegion,
+        *inputs: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Fold one region's inputs into ``state``; accumulate from the
+        input tensors only."""
+        raise NotImplementedError
+
+    def synthesize(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Final many-to-one step, runs after all aggregation."""
+        return state
+
+    def combine_states(self, a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+        return {k: self.state_reductions[k].combine(a[k], b[k]) for k in a}
+
+    # persistent filters pass pixel data through by default
+    def generate(self, out_region: ImageRegion, *inputs: torch.Tensor) -> torch.Tensor:
+        return inputs[0]
+
+
 class Mapper(ProcessObject):
     """Terminates a pipeline: writes to disk or hands data to another system.
 
@@ -188,6 +275,55 @@ class Mapper(ProcessObject):
     def generate(self, out_region: ImageRegion, *inputs: torch.Tensor) -> torch.Tensor:
         # mappers pass pixels through unchanged (identity in the data graph)
         return inputs[0]
+
+
+def window_request(
+    req: ImageRegion, bound: Tuple[int, int], in_info: ImageInfo
+) -> ImageRegion:
+    """Replace an exact (drifting) request with its static-shape bounding
+    window.
+
+    Rows are anchored at the request origin (spill past the image border is
+    clamped and edge-padded by the pull like any other request).  Columns
+    are shifted in-image where possible; that is sound because
+    ``needs_origin`` consumers sample by absolute coordinates and their
+    out-of-window taps edge-clamp exactly where the image edge lies.
+    """
+    wrows, wcols = bound
+    if req.rows > wrows or req.cols > wcols:
+        raise ValueError(
+            f"window_bound {bound} smaller than requested region {req.size} — "
+            "the bound must be conservative for every output region of its size"
+        )
+    c0 = max(0, min(req.col0, in_info.cols - wcols))
+    return ImageRegion((req.row0, c0), (wrows, wcols))
+
+
+def windowed_requests(
+    node: ProcessObject,
+    out_size: Tuple[int, int],
+    reqs: Sequence[ImageRegion],
+    in_infos: Sequence[ImageInfo],
+) -> Tuple[Tuple[ImageRegion, ...], Tuple[Optional[Tuple[int, int]], ...]]:
+    """Apply window classification to one node's requests.
+
+    Returns ``(requests, bounds)``: per input, the window region (when the
+    node is ``needs_origin`` and declares a bound) or the exact request,
+    plus the static bound (``None`` for unwindowed inputs).
+    """
+    if not node.needs_origin:
+        return tuple(reqs), tuple(None for _ in reqs)
+    bounds = tuple(node.window_bound(out_size, *in_infos))
+    if len(bounds) != len(reqs):
+        raise ValueError(
+            f"{node.name}: window_bound returned {len(bounds)} entries for "
+            f"{len(reqs)} inputs"
+        )
+    out = tuple(
+        window_request(r, b, info) if b is not None else r
+        for r, b, info in zip(reqs, bounds, in_infos)
+    )
+    return out, bounds
 
 
 def boundary_pad(

@@ -12,6 +12,11 @@ i overlaps the device computing region i+1.  At most ``_WRITE_DEPTH`` regions
 wait in the write queue, which keeps the paper's memory-budget guarantee with
 a constant factor.
 
+Persistent filters (paper §II.C.1) keep their state on the pipeline's
+device: the run resets it, the pull folds each region in through a hook,
+and ``synthesize`` runs once after the region loop.  Only the mapper's
+pixels go through the write-behind thread.
+
 Counterpart of ``repro.core.streaming.StreamingExecutor``'s eager
 (``use_jit=False``) path.  Source prefetch needs the plan layer's describe
 pass and comes with it.
@@ -21,13 +26,13 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.pipeline import Pipeline
-from repro_torch.core.process_object import Mapper
+from repro_torch.core.process_object import Mapper, PersistentFilter
 from repro_torch.core.region import ImageRegion
 from repro_torch.core.scheduling import (
     lpt_schedule,
@@ -90,6 +95,8 @@ class _WriteBehind:
 class StreamResult:
     regions_processed: int
     pixels_processed: int
+    #: per persistent filter (by name), its synthesized state
+    persistent_results: Dict[str, Dict[str, torch.Tensor]]
     #: per-region host pixel outputs, only kept when ``keep_outputs=True``
     outputs: Optional[List[np.ndarray]] = None
 
@@ -132,6 +139,15 @@ class StreamingExecutor:
         regions = self.my_regions()
         outputs: List[np.ndarray] = []
 
+        # persistent-filter state lives across regions (paper's Reset), on
+        # the device of the pipeline's sources
+        persistent = pipeline.persistent_nodes()
+        device = pipeline.sources()[0].device if persistent else None
+        pstates = {p.name: p.reset(device) for p in persistent}
+
+        def hook(node: PersistentFilter, region: ImageRegion, inputs) -> None:
+            pstates[node.name] = node.accumulate(pstates[node.name], region, *inputs)
+
         def consume(region: ImageRegion, data: np.ndarray) -> None:
             mapper.consume(region, data)
             if keep_outputs:
@@ -142,15 +158,18 @@ class StreamingExecutor:
         pixels = 0
         try:
             for region in regions:
-                writer.put(region, pipeline.pull(mapper, region))
+                writer.put(region, pipeline.pull(mapper, region, persistent_hook=hook))
                 pixels += region.num_pixels
         finally:
             try:
                 writer.close()
             finally:
                 mapper.end()  # release writer descriptors on every path
+        # paper's Synthesis: finalize persistent state after the region loop
+        presults = {p.name: p.synthesize(pstates[p.name]) for p in persistent}
         return StreamResult(
             regions_processed=len(regions),
             pixels_processed=pixels,
+            persistent_results=presults,
             outputs=outputs if keep_outputs else None,
         )

@@ -14,8 +14,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as TC  # noqa: E402
+from repro_torch import filters as TF  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
-from repro_torch.core import StripeSplitter, TileSplitter  # noqa: E402
+from repro_torch.core import Pipeline, StripeSplitter, TileSplitter  # noqa: E402
+from repro_torch.kernels import LAUNCHERS  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
 from repro_torch.kernels import glcm as T_glcm  # noqa: E402
 from repro_torch.kernels import meanshift as T_ms  # noqa: E402
@@ -23,7 +25,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pansharpen as T_ps  # noqa: E402
 from repro_torch.kernels import ssd_scan as T_ssd  # noqa: E402
 from repro_torch.models import lm as T_lm  # noqa: E402
-from repro_torch.raster import ArraySource  # noqa: E402
+from repro_torch.raster import ArraySource, MemoryMapper  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -227,6 +229,64 @@ def test_pipelines_on_cuda_match_cpu(cuda, name, splitter):
                             splitter=splitter, device="cpu", **kw)
     assert mg.result.dtype == mc.result.dtype
     np.testing.assert_allclose(mg.result, mc.result, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("name", ["P1", "P4", "P6", "P7", "P9"])
+@pytest.mark.parametrize("splitter", [StripeSplitter(5), TileSplitter(13, 17)])
+def test_kernel_free_pipelines_on_cuda_match_cpu(cuda, name, splitter):
+    """P4, P6 and P9 equal the CPU path; P1 and P7 (bicubic weights, P1's
+    float32 sin/cos) within rtol 1e-4, atol 1e-3; no hand kernel launches."""
+    scenes = [RNG.integers(1, 4096, (48, 40, 4)).astype(np.uint16) for _ in range(3)]
+    arrays = {"P1": [scenes[0][..., :1]], "P4": scenes[:1], "P6": scenes[:1],
+              "P7": [scenes[0][:16, :12]], "P9": scenes}[name]
+    before = {k: fn.launches for k, fn in LAUNCHERS.items()}
+    _, mg = TP.run_pipeline(name, *[ArraySource(a, device=cuda) for a in arrays],
+                            splitter=splitter, device=cuda)
+    assert {k: fn.launches for k, fn in LAUNCHERS.items()} == before
+    _, mc = TP.run_pipeline(name, *[ArraySource(a, device="cpu") for a in arrays],
+                            splitter=splitter, device="cpu")
+    assert mg.result.dtype == mc.result.dtype
+    if name in ("P1", "P7"):
+        np.testing.assert_allclose(mg.result, mc.result, rtol=1e-4, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(mg.result, mc.result)
+
+
+@pytest.mark.parametrize("in_range", [(0.0, 4096.0), (0.0, 3000.0), (0.0, 2550.0),
+                                      (10.0, 2560.0), (100.0, 3777.0)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_convert_on_cuda_divides_like_the_cpu(cuda, in_range, dtype):
+    """Every 12-bit level: on the card a division by a Python number is a
+    multiply by its reciprocal, which drops some truncated uint8 levels at
+    (0, 2550) and (0, 3000); Convert divides truly and equals the CPU."""
+    x = np.arange(4096, dtype=np.int32).reshape(64, 16, 4)  # uint16 rides as int32
+    f = TF.Convert(dtype, in_range=in_range)
+    got = f.generate(None, _t(x, cuda))
+    want = f.generate(None, _t(x, "cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("splitter", [StripeSplitter(1), StripeSplitter(7), TileSplitter(10, 13)])
+def test_band_statistics_on_cuda_match_cpu(cuda, splitter):
+    """BandStatistics' state stays on the card; count, min and max equal the
+    CPU run's, sum, mean and std within 1e-5."""
+    img = RNG.integers(0, 4096, (36, 30, 4)).astype(np.uint16)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = Pipeline()
+        s = p.add(ArraySource(img, device=dev))
+        st = p.add(TF.BandStatistics(4), [s])
+        m = p.add(MemoryMapper(), [st])
+        out, _ = TP.run_pipeline((p, m), splitter=splitter, device=dev)
+        res[dev.type] = out.persistent_results["BandStatistics"]
+        np.testing.assert_array_equal(m.result, img)
+    assert all(v.device.type == "cuda" for v in res["cuda"].values())
+    for key, want in res["cpu"].items():
+        got = res["cuda"][key].cpu()
+        if key in ("count", "min", "max"):
+            assert torch.equal(got, want), key
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0, msg=key)
 
 
 @pytest.mark.parametrize("BHq,BHkv,Sq,Skv,D", [(3, 3, 128, 128, 32), (3, 3, 256, 256, 64),

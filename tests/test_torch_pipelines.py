@@ -1,8 +1,9 @@
-"""Port parity end to end on the CPU: IO, P3, P2 and P5 streamed through
+"""Port parity end to end on the CPU: IO and P1–P7, P9 streamed through
 ``repro_torch.pipelines.run_pipeline(device="cpu")`` against
-``repro.pipelines.run_pipeline`` (jnp reference path) on the same numpy
-inputs, streamed-vs-whole-image inside the port, RTIF files crossing
-between the two packages, and the synthetic scene."""
+``repro.pipelines.run_pipeline`` (jnp reference path) and against the
+reference's whole-image pull on the same numpy inputs, streamed-vs-whole-image
+inside the port, RTIF files crossing between the two packages, and the
+synthetic scene."""
 import numpy as np
 import pytest
 
@@ -28,6 +29,12 @@ RNG = np.random.default_rng(11)
 XS = RNG.integers(1, 4096, size=(16, 12, 4)).astype(np.uint16)
 PAN = RNG.integers(1, 4096, size=(64, 48, 1)).astype(np.uint16)
 MS = RNG.integers(0, 600, size=(48, 40, 4)).astype(np.uint16)
+# the later pipelines' inputs, from a generator of their own
+RNG2 = np.random.default_rng(20)
+SCENES = [RNG2.integers(1, 4096, size=(48, 40, 4)).astype(np.uint16) for _ in range(3)]
+PAN1 = RNG2.integers(1, 4096, size=(48, 40, 1)).astype(np.uint16)
+WARP = dict(rtol=1e-4, atol=1e-3)  # tests/test_pipelines_p1_p7.py: float sin/cos (C.2)
+EXACT = dict(rtol=0, atol=0)
 
 CASES = {
     # name: (inputs, builder kwargs, tolerance)
@@ -35,7 +42,14 @@ CASES = {
     "P3": ([XS, PAN], {}, dict(rtol=1e-4, atol=1e-2)),
     "P2": ([PAN], {}, dict(rtol=1e-4, atol=1e-4)),
     "P5": ([MS], dict(hs=2, n_iter=2), dict(rtol=1e-4, atol=1e-2)),
+    "P1": ([PAN1], {}, WARP),
+    "P4": ([SCENES[0]], {}, EXACT),
+    "P6": ([SCENES[1]], {}, EXACT),
+    "P7": ([XS], {}, WARP),
+    "P9": (SCENES, {}, EXACT),
 }
+#: pipelines without a kernel: the reference takes no use_pallas for them
+NO_KERNEL = {"IO", "P1", "P4", "P6", "P7", "P9"}
 SPLITS = {"stripe5": (JStripe(5), TStripe(5)), "tile13x17": (JTile(13, 17), TTile(13, 17))}
 
 
@@ -52,7 +66,7 @@ def _run_port(name, splitter, **kw):
 def test_pipeline_matches_reference(name, split):
     arrays, builder_kw, tol = CASES[name]
     jsplit, tsplit = SPLITS[split]
-    jkw = dict(builder_kw) if name == "IO" else dict(builder_kw, use_pallas=False)
+    jkw = dict(builder_kw) if name in NO_KERNEL else dict(builder_kw, use_pallas=False)
     _, jm = JP.run_pipeline(name, *[JArray(a) for a in arrays], splitter=jsplit, **jkw)
     res, tm = _run_port(name, tsplit)
     assert tm.result.dtype == jm.result.dtype and tm.result.shape == jm.result.shape
@@ -159,3 +173,41 @@ def test_streaming_reraises_a_failed_write_and_ends_the_mapper():
     with pytest.raises(OSError, match="disk full"):
         StreamingExecutor(p, m, TStripe(4)).run()
     assert m.ended
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("name", ["P1", "P4", "P6", "P7", "P9"])
+def test_port_streamed_matches_reference_whole_image_pull(name, split):
+    """Mirror of tests/test_pipelines_p1_p7.py: the port streamed under a
+    split against the reference's whole-image pull of the same graph."""
+    arrays, builder_kw, tol = CASES[name]
+    jp, jm = JP.ALL[name](*[JArray(a) for a in arrays], **builder_kw)
+    want = np.asarray(jp.pull(jm, jp.info(jm).full_region))
+    _, tm = _run_port(name, SPLITS[split][1])
+    assert tm.result.dtype == want.dtype and tm.result.shape == want.shape
+    np.testing.assert_allclose(tm.result, want, **tol)
+
+
+def test_p4_trains_the_reference_forest_from_the_source():
+    """P4 draws its training pixels from the source on the run's device and
+    trains on the host: the same pixels give the reference's trees and
+    normalisation, array for array."""
+    img = SCENES[2]
+    jp, jm = JP.p4_classification(JArray(img))
+    tp, tm = TP.p4_classification(TArray(img, device="cpu"))
+    jrf, trf = jp.inputs_of(jm)[0], tp.inputs_of(tm)[0]
+    for a, b in zip(trf.arrays, jrf.arrays):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(trf.mean, jrf.mean)
+    np.testing.assert_array_equal(trf.std, jrf.std)
+
+
+def test_p9_takes_its_scenes_as_sources():
+    """P9 composites explicit scenes; the reference's catalog-driven series
+    (a SceneCatalog, or no scene for the demo series) waits for A.12."""
+    with pytest.raises(NotImplementedError, match="A.12"):
+        TP.p9_ndvi_composite()
+    with pytest.raises(NotImplementedError, match="A.12"):
+        TP.p9_ndvi_composite(object())
+    p, m = TP.p9_ndvi_composite(*[TArray(a, device="cpu") for a in SCENES[:2]], op="min")
+    assert len(p.sources()) == 2 and p.info(m).bands == 1
