@@ -44,7 +44,32 @@
    (the ``meanshift_bands`` line, with the members per pixel in each
    iteration, the instance's occupancy and the pinned arithmetic's issue
    floor);
-6. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+6. the plan layer (``plan`` lines): P1-P7, P9 and STATS streamed again,
+   each with a ``PlanCache`` of its own, through captured CUDA graphs
+   (``use_jit=True``, two runs: the first captures) and through the eager
+   pull (``use_jit=False``, two runs), with the cache's counters, each graph
+   entry's pool bytes and launches per replay, and one ``torch.profiler``
+   run of each mode (idle share, launches); the compiled output must equal
+   the eager one bit for bit;
+7. the fused pipelines (``fused`` lines): P2f (PAN -> Convert(uint8) ->
+   B2), P5f (XS -> Convert(float32, 0..255) -> B3) and a B1 chain (PAN ->
+   Convert(float32, 0..1) -> B1), each with its fused nodes, the bytes the
+   kernel reads per stripe fused and unfused, the kernel's ms with its
+   prologue against the Convert and the kernel apart, and its compiled
+   (fused) output equal to the eager (unfused) pull bit for bit; each
+   prologue is held against ``prestage.apply_plain`` and the plain kernel
+   on one stripe (``kernel_checks``);
+8. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+
+Every ``run_pipeline`` call goes through the plan layer (a CUDA-graph
+capture per signature, replayed per stripe) unless it says
+``use_jit=False``.  Each pipeline of steps 3, 6 and 7 ends with a run under
+``torch.profiler`` whose launch counts (set to 0 just before it) must equal
+each kernel's launches in the device trace: a replay launches the captured
+kernels without their wrappers, which the plan layer stands in for.  Step 3
+builds most pipelines afresh per run into the process-wide plan cache; all
+hold no more device memory after the third run than after the second.  The
+cache is reset and the caching allocator emptied once, before serving.
 
 ``--b2-bands`` builds the kernels, pulls the same P2 stripe and prints only
 the ``glcm_bands`` timings and checks: run from another checkout's root
@@ -81,11 +106,21 @@ from repro_torch.core import (  # noqa: E402
     ImageRegion,
     PersistentFilter,
     Pipeline,
+    PlanCache,
     StripeSplitter,
+    global_plan_cache,
+    reset_global_plan_cache,
     windowed_requests,
 )
-from repro_torch.filters import BandStatistics  # noqa: E402
-from repro_torch.kernels import LAUNCHERS, _build, ops  # noqa: E402
+from repro_torch.filters import (  # noqa: E402
+    BandStatistics,
+    Convert,
+    HaralickTextures,
+    MeanShift,
+    PansharpenFuse,
+    Resample,
+)
+from repro_torch.kernels import LAUNCHERS, _build, ops, prestage  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import glcm as glcm_k  # noqa: E402
 from repro_torch.kernels import meanshift as ms_k  # noqa: E402
@@ -138,22 +173,27 @@ CHECK_PROMPT = 256  # the one request held against the CPU run: one SSD chunk
 KERNELS = {
     "pansharpen": dict(
         source="src/repro_torch/kernels/csrc/pansharpen.cu",
+        symbols=("pansharpen_kernel",),
         replaces="src/repro/kernels/pansharpen.py:50",
     ),
     "glcm_features": dict(
         source="src/repro_torch/kernels/csrc/glcm.cu",
+        symbols=("glcm_kernel",),
         replaces="src/repro/kernels/glcm.py:91",
     ),
     "meanshift": dict(
         source="src/repro_torch/kernels/csrc/meanshift.cu",
+        symbols=("meanshift_blocked", "meanshift_generic"),
         replaces="src/repro/kernels/meanshift.py:51",
     ),
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        symbols=("flash_attention_kernel", "flash_attention_tc"),
         replaces="src/repro/kernels/flash_attention.py:58",
     ),
     "ssd_intra_chunk": dict(
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        symbols=("ssd_intra_chunk_tc",),
         replaces="src/repro/kernels/ssd_scan.py:48",
     ),
 }
@@ -241,6 +281,14 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
+def release_plans() -> None:
+    """Drop the process-wide plan cache (its CUDA graphs and their memory
+    pools) and return the freed memory to the device."""
+    reset_global_plan_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def stripe_inputs(pipeline, node, region):
     """The inputs ``node.generate`` receives for ``region``, pulled through
     the pipeline on the card."""
@@ -264,24 +312,56 @@ def check_regions(kernel: str, card_out: np.ndarray, cpu_pipeline) -> dict:
     return res
 
 
-def timed_runs(run) -> tuple:
-    """Run a pipeline twice (the first run also pays CUDA's lazy module
-    loading), each with the launch counts set to 0 just before and read just
-    after; returns both wall times and the last run's result and counts."""
-    walls = []
+def traced_run(name: str, run) -> tuple:
+    """One run of ``run`` under ``torch.profiler``, with the launch counts
+    set to 0 just before and read just after.  A captured plan's kernels
+    launch on replay, where no wrapper runs (the plan layer adds each
+    entry's launches per replay), so every kernel's count must equal the
+    launches of its symbols in the device trace.  Returns the run's result,
+    the counts and the profile."""
+    reset_launches()
+    held = []
+    profiled = profile_window(lambda: held.append(run()))
+    counts = launches()
+    if counts != profiled["traced_launches"]:
+        raise AssertionError(f"{name}: launch counts {counts} differ from the device trace's "
+                             f"{profiled['traced_launches']}")
+    return held[0], counts, profiled
+
+
+def held_bytes() -> int:
+    """The device memory the live tensors and CUDA graphs hold: the plan
+    cache drops the entries of collected pipelines and the allocator
+    returns what is cached but unused."""
+    len(global_plan_cache())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def timed_runs(name: str, run) -> tuple:
+    """Run a pipeline twice for its wall times (the first run also pays
+    CUDA's lazy module loading), then once more as :func:`traced_run`;
+    returns both wall times, the traced run's result, counts and profile,
+    and the device memory held after each run, which must not grow from
+    the second run to the third (each may build a fresh pipeline)."""
+    walls, held = [], []
     for _ in range(2):
-        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = run()
+        run()
         walls.append(time.perf_counter() - t0)
-        counts = launches()
-    return walls, out, counts
+        held.append(held_bytes())
+    out = traced_run(name, run)
+    held.append(held_bytes())
+    if held[2] > held[1]:
+        raise AssertionError(f"{name}: the device memory held grew from run to run: {held}")
+    return (walls, *out, held)
 
 
 def run_p3(xs, pan, xs_np, pan_np, tmp: Path) -> dict:
     out_path = tmp / "p3.rtif"
-    walls, (res, _), counts = timed_runs(lambda: TP.run_pipeline(
+    walls, (res, _), counts, profiled, held = timed_runs("P3", lambda: TP.run_pipeline(
         "P3", xs, pan, sink=str(out_path), splitter=StripeSplitter(n_splits=N_STRIPES),
         device="cuda",
     ))
@@ -290,18 +370,18 @@ def run_p3(xs, pan, xs_np, pan_np, tmp: Path) -> dict:
         raise AssertionError(f"P3: output {got.shape} {got.dtype}")
     cpu = TP.p3_pansharpening(ArraySource(xs_np, device="cpu"), ArraySource(pan_np, device="cpu"))
     return dict(wall_s=walls, pixels=res.pixels_processed, launches=counts,
-                finite_share=float(np.isfinite(got).mean()),
+                finite_share=float(np.isfinite(got).mean()), profile=profiled, held_bytes=held,
                 regions=check_regions("pansharpen", got, cpu))
 
 
 def run_memory(name: str, kernel: str, src, src_np, **kw) -> dict:
-    walls, (res, mapper), counts = timed_runs(lambda: TP.run_pipeline(
+    walls, (res, mapper), counts, profiled, held = timed_runs(name, lambda: TP.run_pipeline(
         name, src, splitter=StripeSplitter(n_splits=N_STRIPES), device="cuda", **kw
     ))
     got = mapper.result
     cpu = TP.ALL[name](ArraySource(src_np, device="cpu"), **kw)
     return dict(wall_s=walls, pixels=res.pixels_processed, launches=counts,
-                finite_share=float(np.isfinite(got).mean()),
+                finite_share=float(np.isfinite(got).mean()), profile=profiled, held_bytes=held,
                 regions=check_regions(kernel, got, cpu))
 
 
@@ -342,9 +422,7 @@ def kernel_free_runs(xs, pan, xs_np, pan_np) -> dict:
     runs = {}
 
     def stream(name, build_card, build_cpu, **extra):
-        walls, (res, mapper), counts = timed_runs(lambda: TP.run_pipeline(
-            build_card(), splitter=split(), device="cuda"))
-        profiled = profile_window(lambda: TP.run_pipeline(
+        walls, (res, mapper), counts, profiled, held = timed_runs(name, lambda: TP.run_pipeline(
             build_card(), splitter=split(), device="cuda"))
         if any(counts.values()):
             raise AssertionError(f"{name}: hand kernels launched on a kernel-free path: {counts}")
@@ -353,7 +431,8 @@ def kernel_free_runs(xs, pan, xs_np, pan_np) -> dict:
                    shape=list(got.shape), dtype=str(got.dtype),
                    finite_share=float(np.isfinite(got).mean()),
                    regions=check_regions(name, got, build_cpu()),
-                   stages=stripe_stages(*build_card()), profile=profiled, **extra)
+                   stages=stripe_stages(*build_card()), profile=profiled, held_bytes=held,
+                   **extra)
         runs[name] = rec
         return res, got
 
@@ -383,11 +462,6 @@ def kernel_free_runs(xs, pan, xs_np, pan_np) -> dict:
     scenes_np = [s.read_region() for s in scenes]
     stream("P9", lambda: TP.p9_ndvi_composite(*scenes),
            lambda: TP.p9_ndvi_composite(*[cpu(a) for a in scenes_np]))
-
-    def stats_graph(src):
-        p = Pipeline()
-        s = p.add(src)
-        return p, p.add(MemoryMapper(), [p.add(BandStatistics(4), [s])])
 
     res, _ = stream("STATS", lambda: stats_graph(xs), lambda: stats_graph(cpu(xs_np)))
     got = {k: v.cpu().numpy() for k, v in res.persistent_results["BandStatistics"].items()}
@@ -424,13 +498,14 @@ def nbytes(*ts) -> int:
 
 
 def p2_stripe(pan) -> tuple:
-    """P2's pipeline, its texture node, its second stripe and that stripe's
-    float32 band with its halo, as B2 receives it."""
+    """P2's pipeline, its texture node, its second stripe, that stripe's
+    float32 band with its halo and the raw (int32) tile B2 reads in the
+    plan."""
     p, m = TP.p2_textures(pan)
     tex = p.inputs_of(m)[0]
     region = StripeSplitter(n_splits=N_STRIPES).split(p.info(m).full_region, p.info(m))[1]
     (x,) = stripe_inputs(p, tex, region)
-    return p, tex, region, x[..., 0].to(torch.float32).contiguous()
+    return p, tex, region, x[..., 0].to(torch.float32).contiguous(), x
 
 
 def b2_bands(band: torch.Tensor, args: tuple) -> dict:
@@ -466,7 +541,7 @@ def b2_bands_only() -> int:
     card = card_line()
     _build.library()
     _, pan = make_spot6_pair(XS_SIDE, XS_SIDE, seed=0, device="cuda")
-    _, tex, region, band = p2_stripe(pan)
+    _, tex, region, band, _ = p2_stripe(pan)
     args = (tex.radius, tex.offset, tex.levels, tex.vmin, tex.vmax)
     print(json.dumps({"glcm_bands": b2_bands(band, args), "inputs": str(region)}), flush=True)
     print(card, flush=True)
@@ -538,30 +613,40 @@ def kernel_rows(xs, pan) -> tuple:
     xs_up, pan_i = stripe_inputs(p, fuse, region)
     pan_f = pan_i.to(torch.float32)
     r = fuse.radius
-    got = ps_k.pansharpen_cuda(xs_up, pan_f, r)
+    # the kernel reads the raw (int32) PAN stripe, as the plan hands it
+    got = ps_k.pansharpen_cuda(xs_up, pan_i, r)
     want = ps_k.pansharpen_plain(xs_up, pan_f, r)
     torch.cuda.synchronize()
     chk = compare("pansharpen", got.cpu().numpy(), want.cpu().numpy())
-    ms = cuda_ms(lambda: ps_k.pansharpen_cuda(xs_up, pan_f, r))
+    chk["bit_identical"] = bool(torch.equal(got, want))
+    ms = cuda_ms(lambda: ps_k.pansharpen_cuda(xs_up, pan_i, r))
+    float_pan_ms = cuda_ms(lambda: ps_k.pansharpen_cuda(xs_up, pan_f, r))
     plain_ms = cuda_ms(lambda: ps_k.pansharpen_plain(xs_up, pan_f, r))
     # per pixel: (2r+1)^2 adds, two divides and a max, B multiplies
     ops = got.shape[0] * got.shape[1] * ((2 * r + 1) ** 2 + 3 + got.shape[2])
-    bnd = bound(nbytes(xs_up, pan_f, got), ops)
+    bnd = bound(nbytes(xs_up, pan_i, got), ops)
     rows.append(("pansharpen", "P3", str(region), chk, ms, plain_ms, bnd, None))
     up_node, pan_node = p.inputs_of(fuse)
     reqs = fuse.requested_region(region, p.info(up_node), p.info(pan_node))
     stages["P3"] = {
         "resample_pull_ms": cuda_ms(lambda: p.pull(up_node, reqs[0]), reps=5),
         "pan_pull_ms": cuda_ms(lambda: p.pull(pan_node, reqs[1]), reps=5),
-        "pan_cast_ms": cuda_ms(lambda: pan_i.to(torch.float32), reps=5),
+        "pan_cast_ms_before_the_prologue": cuda_ms(lambda: pan_i.to(torch.float32), reps=5),
         "kernel_ms": ms,
+        "kernel_float32_pan_ms": float_pan_ms,
+        "bytes_read": nbytes(xs_up, pan_i),
         "d2h_ms": cuda_ms(lambda: got.cpu(), reps=5),
     }
 
     # B2 on a P2 stripe, and on a uniform-random band of its shape
-    p, tex, region, band = p2_stripe(pan)
+    p, tex, region, band, raw = p2_stripe(pan)
     args = (tex.radius, tex.offset, tex.levels, tex.vmin, tex.vmax)
     bands = b2_bands(band, args)
+    # the raw (int32) stripe through the prologue, as the plan hands it
+    got = glcm_k.glcm_features_cuda(raw, *args)
+    if not torch.equal(got, glcm_k.glcm_features_plain(band, *args)):
+        raise AssertionError("glcm_features on the raw P2 stripe differs from its plain version")
+    raw_ms = cuda_ms(lambda: glcm_k.glcm_features_cuda(raw, *args))
     H, W = band.shape[0] - 2 * tex.halo, band.shape[1] - 2 * tex.halo
     instance = glcm_k.glcm_occupancy(H, W, tex.radius, tex.offset, tex.levels)
     instance_q16 = glcm_k.glcm_occupancy(H, W, tex.radius, tex.offset, glcm_k.MAX_LEVELS)
@@ -570,7 +655,7 @@ def kernel_rows(xs, pan) -> tuple:
     stripe = bands["stripe"]
     chk = dict(max_abs_err=stripe["max_abs_diff"], mismatches=stripe["differing"],
                bit_identical=True)
-    ms = stripe["ms"]
+    ms = raw_ms
     plain_ms = cuda_ms(lambda: glcm_k.glcm_features_plain(band, *args), reps=5)
     px = H * W
     k = 2 * tex.radius + 1
@@ -579,12 +664,13 @@ def kernel_rows(xs, pan) -> tuple:
     # row (2k), ~8 flops of epilogue; ~28 flops per occupied bin
     ops = band.numel() * 4 + px * (2 * k * 3 + 8) + stripe["occupied_bins"] * 28
     out_bytes = px * 5 * 4
-    bnd = bound(nbytes(band) + out_bytes, ops)
+    bnd = bound(nbytes(raw) + out_bytes, ops)
     rows.append(("glcm_features", "P2", str(region), chk, ms, plain_ms, bnd, None))
-    got = glcm_k.glcm_features_cuda(band, *args)
     stages["P2"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(tex)[0], region.pad(tex.halo)), reps=5),
         "kernel_ms": ms,
+        "kernel_float32_band_ms": stripe["ms"],
+        "bytes_read": nbytes(raw),
         "d2h_ms": cuda_ms(lambda: got.cpu(), reps=5),
     }
 
@@ -594,13 +680,17 @@ def kernel_rows(xs, pan) -> tuple:
     args = (msf.hs, msf.hr, msf.n_iter)
     bands = b3_bands(xf, args)
     stripe = bands["stripe"]
+    # the raw (int32) stripe through the prologue, as the plan hands it
+    if not torch.equal(ms_k.meanshift_cuda(x, *args), ms_k.meanshift_plain(xf, *args)):
+        raise AssertionError("meanshift on the raw P5 stripe differs from its plain version")
+    raw_ms = cuda_ms(lambda: ms_k.meanshift_cuda(x, *args))
     H, W, nb = xf.shape[0] - 2 * msf.hs, xf.shape[1] - 2 * msf.hs, xf.shape[2]
     px, K = H * W, (2 * msf.hs + 1) ** 2
     # per pixel, iteration and window offset: B subs, B muls, B - 1 adds and
     # a compare; B divides per pixel and iteration; B + 1 adds (num and den)
     # per member, counted from these inputs
     ops = px * msf.n_iter * (K * 3 * nb + nb) + sum(stripe["members"]) * (nb + 1)
-    bnd = bound(nbytes(xf) + px * nb * 4, ops)
+    bnd = bound(nbytes(x) + px * nb * 4, ops)
     # the pinned arithmetic cannot use FMAs, and its predicated adds issue
     # whether or not the offset is a member: 4B + 1 FP32 instructions per
     # pixel, iteration and offset, one issue slot each
@@ -610,18 +700,195 @@ def kernel_rows(xs, pan) -> tuple:
                       "bound": dict(bnd, issue_floor_ms=floor_ms)}), flush=True)
     chk = dict(max_abs_err=stripe["max_abs_diff"], mismatches=stripe["differing"],
                bit_identical=True)
-    ms = stripe["ms"]
+    ms = raw_ms
     plain_ms = cuda_ms(lambda: ms_k.meanshift_plain(xf, *args), reps=5)
     rows.append(("meanshift", "P5", str(region), chk, ms, plain_ms, bnd, None))
-    got = ms_k.meanshift_cuda(xf, *args)
+    got = ms_k.meanshift_cuda(x, *args)
     stages["P5"] = {
         "source_pull_ms": cuda_ms(lambda: p.pull(p.inputs_of(msf)[0], region.pad(msf.hs)), reps=5),
-        "cast_ms": cuda_ms(lambda: x.to(torch.float32), reps=5),
+        "cast_ms_before_the_prologue": cuda_ms(lambda: x.to(torch.float32), reps=5),
         "kernel_ms": ms,
+        "kernel_float32_input_ms": stripe["ms"],
+        "bytes_read": nbytes(x),
         "d2h_ms": cuda_ms(lambda: got.cpu(), reps=5),
     }
 
     return rows, stages
+
+
+# ---------------------------------------------------------------------------
+# the plan layer: captured plans against the eager pull, and fused chains
+# ---------------------------------------------------------------------------
+PLAN_CELLS = ("P1", "P2", "P3", "P4", "P5", "P6", "P7", "P9", "STATS")
+
+
+def stats_graph(src):
+    p = Pipeline()
+    s = p.add(src)
+    return p, p.add(MemoryMapper(), [p.add(BandStatistics(4), [s])])
+
+
+def plan_graphs(xs, pan) -> dict:
+    """One (pipeline, mapper) pair per plan cell, on the card's sources."""
+    scenes = [SyntheticScene(XS_SIDE, XS_SIDE, bands=4, seed=k, device="cuda") for k in P9_SEEDS]
+    return {
+        "P1": lambda: TP.p1_orthorectification(pan),
+        "P2": lambda: TP.p2_textures(pan),
+        "P3": lambda: TP.p3_pansharpening(xs, pan),
+        "P4": lambda: TP.p4_classification(xs),
+        "P5": lambda: TP.p5_meanshift(xs, **P5_KW),
+        "P6": lambda: TP.p6_conversion(xs),
+        "P7": lambda: TP.p7_resampling(xs),
+        "P9": lambda: TP.p9_ndvi_composite(*scenes),
+        "STATS": lambda: stats_graph(xs),
+    }
+
+
+def entry_record(entries) -> list:
+    return [dict(pool_bytes=e.pool_bytes,
+                 launches_per_replay={k: n for k, n in e.launches_per_replay.items() if n})
+            for e in entries]
+
+
+def stream_modes(name: str, pair) -> dict:
+    """``pair`` streamed through its own ``PlanCache`` (two runs: the first
+    captures) and through the eager pull (two runs), then one profiled run
+    of each mode; the compiled output and persistent state must equal the
+    eager ones bit for bit."""
+    p, m = pair
+    cache = PlanCache()
+    split = lambda: StripeSplitter(n_splits=N_STRIPES)  # noqa: E731
+
+    def run(use_jit):
+        return TP.run_pipeline((p, m), splitter=split(), device="cuda", plan_cache=cache,
+                               use_jit=use_jit)[0]
+
+    rec = {}
+    for mode, use_jit in (("compiled", True), ("eager", False)):
+        walls, counters = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(use_jit)
+            walls.append(time.perf_counter() - t0)
+            counters.append(cache.stats_snapshot())
+        out = m.result.copy()
+        state = {n: {k: v.clone() for k, v in st.items()}
+                 for n, st in res.persistent_results.items()}
+        _, counts, profiled = traced_run(f"{name} {mode}", lambda: run(use_jit))
+        rec[mode] = dict(wall_s=walls, idle_share=profiled["idle_share"],
+                         kernel_launches=profiled["kernel_launches"],
+                         launches={k: n for k, n in counts.items() if n},
+                         host_launch_calls=profiled["host_launch_calls"],
+                         device_busy_ms=profiled["device_busy_ms"],
+                         profiled_wall_ms=profiled["wall_ms"], output=out, state=state)
+        if use_jit:
+            rec["counters_after_each_run"] = counters
+            entries = cache.entries()
+            rec["entries"] = entry_record(entries)
+            rec["reserved_bytes"] = torch.cuda.memory_reserved()  # before the eager runs
+            if not (entries and all(e.captured for e in entries)):
+                raise AssertionError(f"{name}: a plan ran without its CUDA graph")
+    same = np.array_equal(rec["compiled"].pop("output"), rec["eager"].pop("output"))
+    cs, es = rec["compiled"].pop("state"), rec["eager"].pop("state")
+    same_state = all(torch.equal(cs[n][k], es[n][k]) for n in cs for k in cs[n])
+    if not (same and same_state):
+        raise AssertionError(f"{name}: the captured plan's output differs from the eager pull")
+    rec["compiled_equals_eager"] = True
+    rec["counters"] = cache.stats_snapshot()
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def plan_runs(xs, pan) -> dict:
+    runs = {}
+    for name, build in plan_graphs(xs, pan).items():
+        rec = stream_modes(name, build())
+        print(json.dumps({"plan": name, **rec}), flush=True)
+        runs[name] = rec
+    return runs
+
+
+def fused_graph(name: str, xs, pan):
+    """``name``'s fused pipeline: (pipeline, mapper, kernel node, pointwise
+    node fused into it)."""
+    p = Pipeline()
+    if name == "P2f":
+        conv = p.add(Convert(np.uint8, in_range=(0.0, 4096.0)), [p.add(pan)])
+        k = p.add(HaralickTextures(2, (0, 1), 8, vmin=0.0, vmax=256.0), [conv])
+    elif name == "P5f":
+        conv = p.add(Convert(np.float32, in_range=(0.0, 4096.0), out_range=(0.0, 255.0)),
+                     [p.add(xs)])
+        k = p.add(MeanShift(3, hr=8.0, n_iter=4), [conv])
+    else:  # B1f: P3 with PAN rescaled to [0, 1] on the way in
+        up = p.add(Resample(4, method="bicubic", name="xs_up"), [p.add(xs)])
+        conv = p.add(Convert(np.float32, in_range=(0.0, 4096.0), out_range=(0.0, 1.0)),
+                     [p.add(pan)])
+        k = p.add(PansharpenFuse(radius=2), [up, conv])
+    return p, p.add(MemoryMapper(), [k]), k, conv
+
+
+FUSED = {"P2f": "glcm_features", "P5f": "meanshift", "B1f": "pansharpen"}
+
+
+def fused_runs(xs, pan) -> tuple:
+    """The fused pipelines streamed compiled (fused) and eager (unfused),
+    and each prologue on one interior stripe against ``apply_plain`` and
+    the plain kernel."""
+    runs, checks = {}, {}
+    for name, kernel in FUSED.items():
+        p, m, k, conv = fused_graph(name, xs, pan)
+        info = p.info(m)
+        region = StripeSplitter(n_splits=N_STRIPES).split(info.full_region, info)[1]
+        desc = p.describe_pull(m, region, virtual=p.virtual_describe_mode())
+        if desc.fused_nodes != (conv._serial,):
+            raise AssertionError(f"{name}: fused nodes {desc.fused_nodes}, expected the Convert")
+        rec = dict(kernel=kernel, fused_nodes=list(desc.fused_nodes),
+                   kernel_nodes=list(desc.kernel_nodes), stripe=str(region))
+        rec.update(stream_modes(name, (p, m)))
+        # one stripe: the raw tiles the fused kernel reads, and the chain
+        ups = p.inputs_of(k)
+        reqs = k.requested_region(region, *[p.info(u) for u in ups])
+        raws = [p.pull(p.inputs_of(u)[0] if u is conv else u, r) for u, r in zip(ups, reqs)]
+        pre = tuple(conv.pointwise_ops() if u is conv else () for u in ups)
+        fused_body = k.kernel_body(pre)
+        plain_body = k.kernel_body(tuple(() for _ in ups))
+        got = fused_body(*raws)
+        converted = [conv.generate(r, t) if u is conv else t for u, r, t in zip(ups, reqs, raws)]
+        if kernel == "pansharpen":
+            want = ps_k.pansharpen_plain(*[prestage.apply_plain(o, t) for o, t in zip(pre, raws)],
+                                         k.radius)
+        elif kernel == "glcm_features":
+            band = prestage.apply_plain(pre[0], raws[0])[..., 0].to(torch.float32)
+            want = glcm_k.glcm_features_plain(band, k.radius, k.offset, k.levels, k.vmin, k.vmax)
+        else:
+            want = ms_k.meanshift_plain(prestage.apply_plain(pre[0], raws[0]), k.hs, k.hr,
+                                        k.n_iter)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the {kernel} prologue differs from apply_plain and "
+                                 f"the plain kernel on {region}")
+        checks[f"{kernel}@{name}:prologue"] = dict(
+            inputs=str(region), raw=[f"{tuple(t.shape)} {t.dtype}" for t in raws],
+            pre_ops=[len(o) for o in pre], bit_identical=True, max_abs_err=0.0, mismatches=0)
+        conv_out = [c for u, c in zip(ups, converted) if u is conv][0]
+        conv_in = [t for u, t in zip(ups, raws) if u is conv][0]
+        rec.update(
+            kernel_ms=cuda_ms(lambda: fused_body(*raws)),
+            unfused_ms=cuda_ms(lambda: plain_body(*[conv.generate(r, t) if u is conv else t
+                                                    for u, r, t in zip(ups, reqs, raws)])),
+            unfused_kernel_ms=cuda_ms(lambda: plain_body(*converted)),
+            bytes_read_fused=nbytes(*raws),
+            # the Convert reads its raw tile and writes its output, which the
+            # kernel reads again
+            bytes_moved_unfused=nbytes(*converted) + nbytes(conv_in) + nbytes(conv_out),
+        )
+        print(json.dumps({"fused": name, **rec}), flush=True)
+        runs[name] = rec
+        del got, want, raws, converted, conv_out, conv_in
+        torch.cuda.empty_cache()
+    return runs, checks
 
 
 def kernel_line(rows, launch_counts) -> tuple:
@@ -774,6 +1041,11 @@ def serve_model(arch: str) -> tuple:
     return record, box[0]
 
 
+#: the CUDA runtime and driver calls by which the host issues device work
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
 def profile_window(fn) -> dict:
     """``torch.profiler`` over one call of ``fn``: host wall time, device
     busy time (the sum of kernel times; one stream) and the kernels that
@@ -789,11 +1061,21 @@ def profile_window(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: the kernels (CPU ops also carry the device
     # time of the kernels they launch)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    # what the host issued: kernel launches and CUDA-graph replays (a
+    # replay's kernels are each counted in kernel_launches)
+    issued = {e.key: e.count for e in events
+              if e.device_type == DeviceType.CPU and e.key in HOST_LAUNCH_CALLS}
+    # each hand kernel's launches in the trace, by its symbols (in the name
+    # demangled or not)
+    traced = {name: sum(e.count for e in kernels if any(sym in e.key for sym in meta["symbols"]))
+              for name, meta in KERNELS.items()}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                kernel_launches=sum(e.count for e in kernels),
+                kernel_launches=sum(e.count for e in kernels), host_launch_calls=issued,
+                traced_launches=traced,
                 top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
                      for e in kernels[:8]])
 
@@ -952,7 +1234,10 @@ def main(argv: list) -> int:
             raise AssertionError(f"{name}: non-finite output pixels")
     rows, stages = kernel_rows(xs, pan)
     print(json.dumps({"stripe_stages_ms": stages}), flush=True)
+    plan_runs(xs, pan)
+    _, fused_checks = fused_runs(xs, pan)
     del xs, pan
+    release_plans()
 
     captured = {}
     for arch in SERVE_MODELS:
@@ -975,6 +1260,7 @@ def main(argv: list) -> int:
             raise AssertionError(f"{name}: kernel not launched on the {cell} main path")
         print(f"{name}: {n} launches in {cell}", flush=True)
     kernels, checks = kernel_line(rows, launch_counts)
+    checks.update(fused_checks)
     print(json.dumps({"kernel_checks": checks}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
 """Core pipeline framework: region algebra, process-object protocol, pipeline
-DAG, splitting strategies, schedules and the streaming executor."""
+DAG, the plan layer (describe/lower, ``PlanCache``), splitting strategies,
+schedules and the streaming executor."""
 from repro_torch.core.region import ImageRegion, whole
 from repro_torch.core.process_object import (
     Filter,
@@ -15,7 +16,15 @@ from repro_torch.core.process_object import (
     window_request,
     windowed_requests,
 )
-from repro_torch.core.pipeline import Pipeline
+from repro_torch.core.execplan import (
+    CacheStats,
+    PlanCache,
+    PlanDescription,
+    global_plan_cache,
+    read_plan_sources,
+    reset_global_plan_cache,
+)
+from repro_torch.core.pipeline import Pipeline, PullPlan
 from repro_torch.core.splitting import Splitter, StripeSplitter, TileSplitter
 from repro_torch.core.scheduling import (
     cost_weighted_static_schedule,
@@ -41,6 +50,13 @@ __all__ = [
     "window_request",
     "windowed_requests",
     "Pipeline",
+    "PullPlan",
+    "CacheStats",
+    "PlanCache",
+    "PlanDescription",
+    "global_plan_cache",
+    "read_plan_sources",
+    "reset_global_plan_cache",
     "Splitter",
     "StripeSplitter",
     "TileSplitter",

@@ -14,14 +14,22 @@ the three-phase pull of ITK/OTB:
 regions (``reset`` / ``accumulate`` / ``synthesize``); the state lives on
 the pipeline's device.
 
-Counterpart of ``repro.core.process_object``.  The plan-layer hooks
-(``plan_key``, ``pointwise_fn``, the kernel fast path) come with the plan
-layer.
+The plan layer's hooks live here too: ``plan_key`` (static data a plan
+bakes in), ``pointwise_ops`` (the fusion hook: a pointwise filter's
+transform as an op list of :mod:`repro_torch.kernels.prestage`) and
+``kernel_plan``/``kernel_body`` (the hand-kernel fast path that folds such
+op lists into a kernel's prologue).
+
+Counterpart of ``repro.core.process_object``; ``pointwise_ops`` stands for
+the reference's ``pointwise_fn`` (a CUDA kernel cannot run an arbitrary
+Python callable) and ``kernel_plan``/``kernel_body`` for its
+``pallas_plan``/``pallas_body``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+import itertools
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,6 +115,11 @@ class ImageInfo:
         return self.rows * self.cols * self.bytes_per_pixel
 
 
+#: monotonic construction counter: plan signatures embed ``_serial`` (never
+#: recycled, unlike ``id()``), so a process-wide plan registry stays sound
+_SERIALS = itertools.count()
+
+
 class ProcessObject:
     """Base class. Subclasses override the three protocol methods."""
 
@@ -115,6 +128,7 @@ class ProcessObject:
 
     def __init__(self, name: Optional[str] = None):
         self.name = name or type(self).__name__
+        self._serial = next(_SERIALS)
 
     # -- phase 1: metadata downstream ---------------------------------------
     def output_info(self, *input_infos: ImageInfo) -> ImageInfo:
@@ -167,6 +181,49 @@ class ProcessObject:
         """
         return tuple(None for _ in range(self.n_inputs))
 
+    # -- the plan layer ------------------------------------------------------
+    def plan_key(self, out_region: ImageRegion):
+        """Extra static data baked into this node's plan beyond array shapes
+        and boundary pads.  One plan serves every region whose signature,
+        plan keys included, matches; a filter whose ``generate`` depends on
+        absolute coordinates through host-side constants (a resampling
+        phase) returns a hashable key here.  Translation-invariant filters
+        return None."""
+        return None
+
+    def pointwise_ops(self) -> Optional[Tuple[tuple, ...]]:
+        """The fusion hook: ``generate`` as an op list of
+        :mod:`repro_torch.kernels.prestage` (``prestage.apply_plain(ops, x)``
+        equals ``generate(region, x)`` bit for bit), or None to never fuse.
+
+        A zero-halo filter that is pointwise in (row, col) may return one.
+        The plan walk then folds a single-consumer chain of such nodes into
+        the consuming kernel's prologue, which applies the ops to each raw
+        sample as it is loaded: the chain's intermediates never reach device
+        memory.  Elementwise ops commute with edge padding, so fused and
+        unfused plans agree bit for bit."""
+        return None
+
+    def kernel_plan(self) -> bool:
+        """Decision hook of the kernel fast path, consulted by both the
+        describe and the lower walk.  True makes the plan call
+        :meth:`kernel_body` in place of ``generate`` and fold upstream
+        pointwise chains into it.  Kernel-backed filters return True on
+        every device (on the CPU the body runs the plain versions), so a
+        description never depends on the device."""
+        return False
+
+    def kernel_body(self, pre_ops: Tuple[Tuple[tuple, ...], ...]) -> Callable:
+        """Body hook of the kernel fast path, called at lower time only.
+
+        ``pre_ops`` has one entry per input: the op list fused onto that
+        input (``()`` when nothing fused).  Returns ``body(*inputs) -> out``
+        in place of ``generate``; ``inputs[i]`` is the raw array below the
+        fused chain, covering this node's i-th requested region."""
+        raise NotImplementedError(
+            f"{self.name}: kernel_plan() is True but kernel_body() is missing"
+        )
+
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"
 
@@ -189,6 +246,13 @@ class Source(ProcessObject):
 
     def generate(self, out_region: ImageRegion) -> torch.Tensor:  # type: ignore[override]
         raise NotImplementedError
+
+    def read_record(self):
+        """Extra static data stamped into this source's plan-signature read
+        records (the source-side analogue of :meth:`plan_key`; tiled
+        containers will stamp their tile geometry).  None for every source
+        the port has so far."""
+        return None
 
 
 class Filter(ProcessObject):

@@ -5,21 +5,32 @@ bounded memory footprint.  ``worker`` / ``n_workers`` select this worker's
 slice of the schedule, so the same driver runs standalone or as one rank of a
 host-level parallel run.
 
-Each region is pulled eagerly on the pipeline's device (kernels launch
-asynchronously on the current stream); the device-to-host copy and
-``mapper.consume`` run on a write-behind thread, so the host write of region
-i overlaps the device computing region i+1.  At most ``_WRITE_DEPTH`` regions
-wait in the write queue, which keeps the paper's memory-budget guarantee with
-a constant factor.
+By default (``use_jit=True``) each region runs through the plan layer: the
+describe pass (``Pipeline.describe_pull``) gives its reads and canonical
+signature, the :class:`~repro_torch.core.execplan.PlanCache` gives the
+compiled entry for that signature (lowered on a miss only), and the entry
+runs on the region's source arrays.  On a GPU an entry is one CUDA-graph
+capture, replayed for every region with its signature: a uniform stripe
+split captures once.  Border stripes describe against virtual padded
+geometry where that cannot change pixels
+(``Pipeline.virtual_describe_mode``), so they share the interior entry.
+``use_jit=False`` is the eager pull, the oracle the compiled path is held
+against bit for bit.
+
+The device-to-host copy and ``mapper.consume`` run on a write-behind
+thread, so the host write of region i overlaps the device computing region
+i+1; at most ``_WRITE_DEPTH`` regions wait in its queue.  Before the first
+call of a registry entry (a capture on a GPU) the executor drains the
+queue, so no other thread touches the device during a capture.
 
 Persistent filters (paper §II.C.1) keep their state on the pipeline's
-device: the run resets it, the pull folds each region in through a hook,
-and ``synthesize`` runs once after the region loop.  Only the mapper's
-pixels go through the write-behind thread.
+device: the run resets it, every region folds into it (through the
+compiled closure, or through a hook on the eager path), and ``synthesize``
+runs once after the region loop.
 
-Counterpart of ``repro.core.streaming.StreamingExecutor``'s eager
-(``use_jit=False``) path.  Source prefetch needs the plan layer's describe
-pass and comes with it.
+Counterpart of ``repro.core.streaming.StreamingExecutor``.  Source
+prefetch, ``cache=False``, ``region_gate`` and ``execute`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.execplan import CacheStats, PlanCache
 from repro_torch.core.pipeline import Pipeline
 from repro_torch.core.process_object import Mapper, PersistentFilter
 from repro_torch.core.region import ImageRegion
@@ -67,17 +79,26 @@ class _WriteBehind:
     def _loop(self):
         while True:
             item = self._q.get()
-            if item is self._STOP:
-                return
-            if self._error is not None:
-                continue  # drain without consuming
-            region, data = item
             try:
-                # .cpu() orders after the producing kernels: both run on the
-                # device's default stream
-                self._consume(region, data.cpu().numpy())
-            except BaseException as e:  # noqa: BLE001 — re-raised by the producer
-                self._error = e
+                if item is self._STOP:
+                    return
+                if self._error is not None:
+                    continue  # drain without consuming
+                region, data = item
+                try:
+                    # .cpu() orders after the producing kernels: both run on
+                    # the device's default stream
+                    self._consume(region, data.cpu().numpy())
+                except BaseException as e:  # noqa: BLE001 — re-raised by the producer
+                    self._error = e
+            finally:
+                self._q.task_done()
+
+    def drain(self) -> None:
+        """Wait until every queued region has been consumed."""
+        self._q.join()
+        if self._error is not None:
+            raise self._error
 
     def put(self, region: ImageRegion, data: torch.Tensor) -> None:
         if self._error is not None:
@@ -99,6 +120,11 @@ class StreamResult:
     persistent_results: Dict[str, Dict[str, torch.Tensor]]
     #: per-region host pixel outputs, only kept when ``keep_outputs=True``
     outputs: Optional[List[np.ndarray]] = None
+    #: the plan cache's live counters (None on the eager path): they keep
+    #: counting after the run
+    cache_stats: Optional[CacheStats] = None
+    #: the same counters frozen at the end of the run
+    cache_snapshot: Optional[Dict[str, int]] = None
 
 
 class StreamingExecutor:
@@ -111,6 +137,9 @@ class StreamingExecutor:
         n_workers: int = 1,
         scheduler: str = "static",
         cost_fn: Optional[Callable[[ImageRegion], float]] = None,
+        use_jit: bool = True,
+        plan_cache: Optional[PlanCache] = None,
+        max_cached_plans: Optional[int] = None,
     ):
         if scheduler not in _SCHEDULERS:
             raise ValueError(scheduler)
@@ -121,6 +150,12 @@ class StreamingExecutor:
         self.n_workers = n_workers
         self.scheduler = scheduler
         self.cost_fn = cost_fn or (lambda r: float(r.num_pixels))
+        self.use_jit = use_jit
+        # explicit None check: an empty PlanCache is falsy (it has __len__)
+        self.plan_cache = plan_cache if plan_cache is not None else PlanCache(max_cached_plans)
+        # border stripes describe against virtual padded geometry where that
+        # cannot change pixels, so a striped halo run shares one signature
+        self.describe_virtual = pipeline.virtual_describe_mode()
 
     def my_regions(self) -> List[ImageRegion]:
         info = self.pipeline.info(self.mapper)
@@ -132,6 +167,13 @@ class StreamingExecutor:
         else:
             sched = work_stealing_schedule(regions, self.n_workers, self.cost_fn)
         return [regions[i] for i in sched[self.worker]]
+
+    def _prepare(self, region: ImageRegion):
+        """Describe ``region``, look its entry up (lowering on a miss only)
+        and read its sources."""
+        desc = self.pipeline.describe_pull(self.mapper, region, virtual=self.describe_virtual)
+        entry = self.plan_cache.compiled_for(desc, lambda: self.pipeline.lower_pull(desc))
+        return desc, entry, desc.read_sources()
 
     def run(self, keep_outputs: bool = False) -> StreamResult:
         pipeline, mapper = self.pipeline, self.mapper
@@ -158,7 +200,14 @@ class StreamingExecutor:
         pixels = 0
         try:
             for region in regions:
-                writer.put(region, pipeline.pull(mapper, region, persistent_hook=hook))
+                if self.use_jit:
+                    desc, entry, arrays = self._prepare(region)
+                    if not entry.primed:
+                        writer.drain()  # nothing else on the device while it compiles
+                    out, pstates = entry(arrays, pstates, desc.origins())
+                else:
+                    out = pipeline.pull(mapper, region, persistent_hook=hook)
+                writer.put(region, out)
                 pixels += region.num_pixels
         finally:
             try:
@@ -172,4 +221,6 @@ class StreamingExecutor:
             pixels_processed=pixels,
             persistent_results=presults,
             outputs=outputs if keep_outputs else None,
+            cache_stats=self.plan_cache.stats if self.use_jit else None,
+            cache_snapshot=self.plan_cache.stats_snapshot() if self.use_jit else None,
         )

@@ -147,11 +147,12 @@ def train_forest(
 # ---------------------------------------------------------------------------
 def forest_predict(forest_arrays, n_classes: int, max_depth: int, X: torch.Tensor):
     """X: (N, F) float32 → (N,) int32 predicted class, on X's device.
-    ``forest_arrays`` = :meth:`Forest.stacked`.  Ties in the vote go to the
+    ``forest_arrays`` = :meth:`Forest.stacked` (numpy, copied to the device
+    on each call, or tensors already on X's device).  Ties in the vote go to the
     lowest class, as ``jnp.argmax`` breaks them."""
     dev = X.device
-    feat, thr, left, right, leaf = (torch.from_numpy(np.asarray(a)).to(dev)
-                                    for a in forest_arrays)
+    feat, thr, left, right, leaf = (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+                                    .to(dev) for a in forest_arrays)
     N = X.shape[0]
     rows = torch.arange(N, device=dev)
     votes = torch.zeros((N, n_classes), dtype=torch.float32, device=dev)
@@ -185,6 +186,17 @@ class RandomForestClassify(Filter):
         self.arrays = forest.stacked()
         self.mean = None if mean is None else np.asarray(mean, np.float32)
         self.std = None if std is None else np.asarray(std, np.float32)
+        self._device_arrays = {}  # device -> (forest arrays, mean, std)
+
+    def _on(self, device):
+        """The forest arrays and the normalization on ``device``, moved there
+        once (a captured plan copies nothing from the host)."""
+        got = self._device_arrays.get(device)
+        if got is None:
+            move = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+            got = (tuple(move(a) for a in self.arrays), move(self.mean), move(self.std))
+            self._device_arrays[device] = got
+        return got
 
     def output_info(self, info: ImageInfo) -> ImageInfo:
         return ImageInfo(info.rows, info.cols, 1, np.int32, info.geo)
@@ -192,11 +204,8 @@ class RandomForestClassify(Filter):
     def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
         H, W, B = x.shape
         feats = x.reshape(-1, B).to(torch.float32)
-        if self.mean is not None:
-            mean = torch.from_numpy(self.mean).to(x.device)
-            std = torch.from_numpy(self.std).to(x.device)
+        arrays, mean, std = self._on(x.device)
+        if mean is not None:
             feats = (feats - mean) / torch.clamp(std, min=1e-6)
-        cls = forest_predict(
-            self.arrays, self.forest.n_classes, self.forest.max_depth, feats
-        )
+        cls = forest_predict(arrays, self.forest.n_classes, self.forest.max_depth, feats)
         return cls.reshape(H, W, 1)

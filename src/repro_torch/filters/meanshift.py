@@ -34,3 +34,15 @@ class MeanShift(Filter):
 
     def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
         return ops.meanshift(x, self.hs, self.hr, self.n_iter)
+
+    # -- the plan layer's kernel fast path -----------------------------------
+    def kernel_plan(self) -> bool:
+        return True
+
+    def kernel_body(self, pre_ops=((),)):
+        pre = pre_ops[0]
+
+        def body(x):
+            return ops.meanshift(x, self.hs, self.hr, self.n_iter, pre=pre)
+
+        return body

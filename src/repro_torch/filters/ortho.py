@@ -111,8 +111,11 @@ class Orthorectify(Filter):
         dev = x.device
         # absolute output coords; float32 keeps sub-0.1 px precision through
         # ~10⁶-row rasters
-        rr = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + float(origin[0])
-        cc = torch.arange(W, dtype=torch.float32, device=dev)[None, :] + float(origin[1])
+        # origins are Python ints (eager pull) or int32 device scalars (the
+        # plan's origin tensor, read on the device, never by the host): a
+        # float32 arange plus either gives the same float32 coordinates
+        rr = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + origin[0]
+        cc = torch.arange(W, dtype=torch.float32, device=dev)[None, :] + origin[1]
         ar, ac = m.affine(rr, cc)
         dr, dc = m.displacement(rr, cc)
         # sample at absolute coords; the array origin is subtracted in integer
@@ -126,18 +129,19 @@ def bicubic_sample(x: torch.Tensor, src_r: torch.Tensor, src_c: torch.Tensor,
     """Sample (rows, cols, bands) at fractional coords (H, W) → (H, W, bands).
 
     ``src_r``/``src_c`` are absolute source coordinates; ``origin`` is the
-    absolute (row, col) of ``x[0, 0]``.  The fractional parts come from the
-    absolute coordinates and the origin is applied as an exact integer shift
-    of the gather index (int32, as the reference computes it; cast to int64
-    for indexing only after clamping).  Taps outside ``x`` edge-clamp.
+    absolute (row, col) of ``x[0, 0]``, as Python ints or int32 device
+    scalars.  The fractional parts come from the absolute coordinates and
+    the origin is applied as an exact integer shift of the gather index
+    (int32, as the reference computes it; cast to int64 for indexing only
+    after clamping).  Taps outside ``x`` edge-clamp.
     """
     n_r, n_c, bands = x.shape
     fr = torch.floor(src_r)
     fc = torch.floor(src_c)
     tr = src_r - fr
     tc = src_c - fc
-    br = fr.to(torch.int32) - int(origin[0])
-    bc = fc.to(torch.int32) - int(origin[1])
+    br = fr.to(torch.int32) - origin[0]
+    bc = fc.to(torch.int32) - origin[1]
     wr = _cubic_w(tr)  # (H, W, 4)
     wc = _cubic_w(tc)
     flat = x.reshape(-1, bands)

@@ -37,3 +37,15 @@ class PansharpenFuse(Filter):
 
     def generate(self, out_region: ImageRegion, xs_up, pan) -> torch.Tensor:
         return ops.pansharpen(xs_up, pan, self.radius)
+
+    # -- the plan layer's kernel fast path -----------------------------------
+    def kernel_plan(self) -> bool:
+        return True
+
+    def kernel_body(self, pre_ops=((), ())):
+        pre_xs, pre_pan = pre_ops
+
+        def body(xs_up, pan):
+            return ops.pansharpen(xs_up, pan, self.radius, pre_xs=pre_xs, pre_pan=pre_pan)
+
+        return body

@@ -8,14 +8,14 @@ says (``uint16`` as ``int32``), and ``ImageInfo`` keeps the numpy dtype.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.process_object import Filter, ImageInfo, tensor_dtype
 from repro_torch.core.region import ImageRegion
-from repro_torch.kernels._build import true_div
+from repro_torch.kernels import prestage
 
 
 class Convert(Filter):
@@ -37,39 +37,69 @@ class Convert(Filter):
     def output_info(self, info: ImageInfo) -> ImageInfo:
         return ImageInfo(info.rows, info.cols, info.bands, self.dtype, info.geo)
 
-    def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
+    def _chain(self) -> prestage.Ops:
+        """``generate`` as a pre-stage op list: the rescale, in the
+        reference's order, then the clip and the cast."""
         (i0, i1), (o0, o1) = self.in_range, self.out_range
+        f = prestage.f32
         # a true division: an integer output truncates, so a quotient one ulp
         # under an integer would drop a whole level
-        y = true_div(x.to(torch.float32) - i0, i1 - i0) * (o1 - o0) + o0
-        y = torch.clamp(y, min(o0, o1), max(o0, o1))
-        return y.to(tensor_dtype(self.dtype))
+        return (("cast_f32",), ("sub", f(i0)), ("div", f(i1 - i0)), ("mul", f(o1 - o0)),
+                ("add", f(o0)), ("clip", f(min(o0, o1)), f(max(o0, o1))),
+                ("cast", tensor_dtype(self.dtype)))
+
+    def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
+        return prestage.apply_plain(self._chain(), x)
+
+    def pointwise_ops(self):
+        # elementwise and region-free; an out_range past an integer dtype's
+        # range casts out of range, which the kernels' prologue does not
+        # reproduce, so such a Convert stays unfused
+        chain = self._chain()
+        return chain if prestage.kernel_safe(chain) else None
 
 
 class BandMath(Filter):
-    """Apply an arbitrary pointwise function of the band vector (a function
-    on float32 tensors, last axis = bands)."""
+    """Apply a pointwise function of the band vector: either ``fn``, a
+    function on float32 tensors (last axis = bands), or ``ops``, a
+    pre-stage op list (:mod:`repro_torch.kernels.prestage`) applied after
+    the float32 cast.  Only the op-list form can fold into a kernel's
+    prologue; a ``BandMath`` built from a callable stays unfused (the
+    reference fuses any callable into its Pallas kernels)."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], out_bands: int,
-                 out_dtype=np.float32, name=None):
+    def __init__(self, fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 out_bands: int = 1, out_dtype=np.float32, name=None,
+                 ops: Optional[Sequence[tuple]] = None):
         super().__init__(name)
+        if (fn is None) == (ops is None):
+            raise ValueError("BandMath takes one of fn= or ops=")
         self.fn = fn
+        self.ops = None if ops is None else tuple(ops)
         self.out_bands = out_bands
         self.out_dtype = np.dtype(out_dtype)
 
     def output_info(self, info: ImageInfo) -> ImageInfo:
         return ImageInfo(info.rows, info.cols, self.out_bands, self.out_dtype, info.geo)
 
+    def _chain(self) -> prestage.Ops:
+        return (("cast_f32",),) + self.ops + (("cast", tensor_dtype(self.out_dtype)),)
+
     def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
+        if self.ops is not None:
+            return prestage.apply_plain(self._chain(), x)
         return self.fn(x.to(torch.float32)).to(tensor_dtype(self.out_dtype))
+
+    def pointwise_ops(self):
+        if self.ops is None:
+            return None
+        chain = self._chain()
+        return chain if prestage.kernel_safe(chain) else None
 
 
 def ndvi(red_band: int = 0, nir_band: int = 3) -> BandMath:
-    def fn(x):
-        r, n = x[..., red_band], x[..., nir_band]
-        return ((n - r) / torch.clamp(n + r, min=1e-6))[..., None]
-
-    return BandMath(fn, out_bands=1, name="ndvi")
+    """NDVI = (NIR - red) / max(NIR + red, 1e-6), as an op list."""
+    return BandMath(ops=(("ndiff", red_band, nir_band, prestage.f32(1e-6)),),
+                    out_bands=1, name="ndvi")
 
 
 class Composite(Filter):

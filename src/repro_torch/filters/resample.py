@@ -5,7 +5,10 @@ factors.  Output-info transforms size+spacing; requested regions enlarge by
 the interpolation support.  Tap indices and weights are computed host-side
 in float64 numpy (identical to ``repro.filters.resample``); the taps are
 gathered with ``index_select`` on the pipeline's device and summed in the
-reference's order.
+reference's order.  The tap tensors depend on the output size, the output
+origin's phase on the resampling lattice (``plan_key``) and the input
+size; each filter moves each distinct set to the device once and reuses it,
+so a captured plan copies nothing from the host.
 """
 from __future__ import annotations
 
@@ -52,17 +55,22 @@ def axis_taps(n_out: int, scale: float, src_offset: float, n_in: int, method: st
     return idx.astype(np.int32), w.astype(np.float32)
 
 
-def apply_taps(x: torch.Tensor, axis: int, idx: np.ndarray, w: np.ndarray) -> torch.Tensor:
-    """y[..., i, ...] = Σ_k w[i,k] · x[..., idx[i,k], ...] along ``axis``."""
+def apply_taps(x: torch.Tensor, axis: int, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[..., i, ...] = Σ_k w[k, i] · x[..., idx[k, i], ...] along ``axis``
+    (``idx`` int64 and ``w`` float32, tap-major, on ``x``'s device)."""
     shape = [-1 if d == axis else 1 for d in range(x.dim())]
-    idx_t = torch.from_numpy(np.ascontiguousarray(idx.T, dtype=np.int64)).to(x.device)
-    w_t = torch.from_numpy(np.ascontiguousarray(w.T)).to(x.device)
     out = None
-    for k in range(idx.shape[1]):
-        g = x.index_select(axis, idx_t[k])
-        wk = w_t[k].reshape(shape)
+    for k in range(idx.shape[0]):
+        g = x.index_select(axis, idx[k])
+        wk = w[k].reshape(shape)
         out = g * wk if out is None else out + g * wk
     return out
+
+
+def device_taps(idx: np.ndarray, w: np.ndarray, device) -> tuple:
+    """An :func:`axis_taps` plan as tap-major tensors on ``device``."""
+    return (torch.from_numpy(np.ascontiguousarray(idx.T, dtype=np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(w.T)).to(device))
 
 
 class Resample(Filter):
@@ -78,6 +86,7 @@ class Resample(Filter):
             raise ValueError("factors must be positive")
         self.method = method
         self.support = _SUPPORT[method]
+        self._taps = {}  # (axis, n_out, offset, n_in, device) -> device taps
 
     def output_info(self, info: ImageInfo) -> ImageInfo:
         rows = int(info.rows * self.fr)
@@ -99,13 +108,25 @@ class Resample(Filter):
         c0, c1 = self._in_range(out_region.col0, out_region.col1, self.fc)
         return (ImageRegion((r0, c0), (r1 - r0, c1 - c0)),)
 
+    def plan_key(self, out_region: ImageRegion):
+        # the tap geometry depends on the output origin's phase on the
+        # resampling lattice, which repeats every ``numerator`` indices
+        return (out_region.row0 % self.fr.numerator, out_region.col0 % self.fc.numerator)
+
+    def _axis(self, axis: int, n_out: int, f: Fraction, off: float, n_in: int, device):
+        key = (axis, n_out, off, n_in, device)
+        taps = self._taps.get(key)
+        if taps is None:
+            taps = device_taps(*axis_taps(n_out, float(f), off, n_in, self.method), device)
+            self._taps[key] = taps
+        return taps
+
     def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         req = self.requested_region(out_region, None)[0]
         # local source coord of local out i: (i+0.5)/f - 0.5 - (req.r0 - out.r0/f)
         off_r = req.row0 - out_region.row0 / float(self.fr)
         off_c = req.col0 - out_region.col0 / float(self.fc)
-        ir, wr = axis_taps(out_region.rows, float(self.fr), off_r, x.shape[0], self.method)
-        ic, wc = axis_taps(out_region.cols, float(self.fc), off_c, x.shape[1], self.method)
-        y = apply_taps(x, 0, ir, wr)
-        return apply_taps(y, 1, ic, wc)
+        y = apply_taps(x, 0, *self._axis(0, out_region.rows, self.fr, off_r, x.shape[0], x.device))
+        return apply_taps(y, 1, *self._axis(1, out_region.cols, self.fc, off_c, x.shape[1],
+                                            x.device))

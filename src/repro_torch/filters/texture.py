@@ -50,7 +50,21 @@ class HaralickTextures(Filter):
         return (out_region.pad(self.halo),)
 
     def generate(self, out_region: ImageRegion, x: torch.Tensor) -> torch.Tensor:
-        band = x[..., 0].to(torch.float32)
+        # the raw tile: B2 selects band 0 and casts it as it loads
         return ops.glcm_features(
-            band, self.radius, self.offset, self.levels, self.vmin, self.vmax
+            x, self.radius, self.offset, self.levels, self.vmin, self.vmax
         )
+
+    # -- the plan layer's kernel fast path -----------------------------------
+    def kernel_plan(self) -> bool:
+        return True
+
+    def kernel_body(self, pre_ops=((),)):
+        pre = pre_ops[0]
+
+        def body(x):
+            return ops.glcm_features(
+                x, self.radius, self.offset, self.levels, self.vmin, self.vmax, pre=pre
+            )
+
+        return body

@@ -1,7 +1,15 @@
 """Hand-written Hopper kernels (CUDA C++ in ``csrc/``), each beside its plain
 PyTorch version, and the device dispatch (``ops``) the filters and the LM
 call."""
-from repro_torch.kernels import flash_attention, glcm, meanshift, ops, pansharpen, ssd_scan
+from repro_torch.kernels import (
+    flash_attention,
+    glcm,
+    meanshift,
+    ops,
+    pansharpen,
+    prestage,
+    ssd_scan,
+)
 
 #: the kernel launchers of the main path, each with its ``.launches`` count
 LAUNCHERS = {
@@ -13,5 +21,6 @@ LAUNCHERS = {
 }
 
 __all__ = [
-    "flash_attention", "glcm", "meanshift", "ops", "pansharpen", "ssd_scan", "LAUNCHERS",
+    "flash_attention", "glcm", "meanshift", "ops", "pansharpen", "prestage", "ssd_scan",
+    "LAUNCHERS",
 ]

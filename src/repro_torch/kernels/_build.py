@@ -32,12 +32,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every exported function: (restype, argtypes).  Launchers
 #: return the cudaError_t of their launch (0 = success).
 SIGNATURES = {
-    # xs, pan, out, H, W, B, Bp, radius, stream
-    "pansharpen_f32": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    # band, out, H, W, radius, dr, dc, levels, vmin, span, stream
-    "glcm_features_f32": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
-    # x, out, H, W, B, hs, hr2, n_iter, stream
-    "meanshift_f32": (_I, (_P, _P, _I, _I, _I, _I, _F, _I, _P)),
+    # xs, pre_xs, pan, pre_pan, out, H, W, B, radius, stream (raw inputs,
+    # each with its prestage.PreOps)
+    "pansharpen_f32": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # raw, pre, out, H, W, radius, dr, dc, levels, vmin, span, stream
+    "glcm_features_f32": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+    # raw, pre, out, H, W, B, hs, hr2, n_iter, stream
+    "meanshift_f32": (_I, (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),
     # q, k, v, out, BHq, BHkv, Sq, Skv, D, causal, scale, stream
     "flash_attention_f32": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
     "flash_attention_bf16": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
@@ -138,8 +139,10 @@ def true_div(t: torch.Tensor, divisor: float) -> torch.Tensor:
     """``t / divisor`` as a correctly rounded float division, as the kernels
     compute it.  For a Python-number divisor PyTorch's CUDA path multiplies
     by the reciprocal instead, one ulp away; a 0-dim tensor on ``t``'s
-    device keeps the true division on every device."""
-    return t / torch.tensor(divisor, dtype=t.dtype, device=t.device)
+    device keeps the true division on every device.  The divisor is made by
+    a fill on that device (no host-to-device copy, which a CUDA-graph
+    capture refuses), holding the same float32 value."""
+    return t / torch.full((), divisor, dtype=t.dtype, device=t.device)
 
 
 def require(kernel: str, name: str, t, ndim: int, dtype: torch.dtype = torch.float32) -> None:

@@ -48,9 +48,18 @@
 // does not fit in shared memory (an offset or radius of ~100 or more) reads
 // the band from device memory instead, with 32-bit counts and the total
 // summed in bin order.
+//
+// The fused pre-stage (the Pallas kernel's pre_fn): given a raw tile
+// (uint8, int32 or float32, any number of bands) the loads of step 1 run
+// each raw pixel through the plan layer's op list and take band 0 of the
+// result (prestage.cuh) before they quantize it, so a Convert feeding the
+// texture filter never writes its output to device memory.  A float32 band
+// takes the same path with an empty op list.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdlib.h>
+
+#include "prestage.cuh"
 
 namespace {
 
@@ -155,9 +164,8 @@ size_t smem_bytes(int R, int halo, int levels, int nslot) {
 
 template <int S, int KR, typename CountT, bool kTiled>
 __global__ void __launch_bounds__(Cfg<CountT>::NT)
-glcm_kernel(const float* __restrict__ band, float* __restrict__ out, int H,
-            int W, int radius, int dr, int dc, int levels, float vmin,
-            float span) {
+glcm_kernel(const void* __restrict__ raw, const prestage::Ops pre, float* __restrict__ out,
+            int H, int W, int radius, int dr, int dc, int levels, float vmin, float span) {
   using C = Cfg<CountT>;
   constexpr bool kTables = sizeof(CountT) == 1;
   constexpr int MW = S * S / 64;
@@ -207,13 +215,50 @@ glcm_kernel(const float* __restrict__ band, float* __restrict__ out, int H,
     const int nq = QH * QW;
     const unsigned inv_qw = 0xFFFFFFFFu / QW + 1u;
     for (int base = t; base < nq; base += LOADS * C::NT) {
-      float v[LOADS];
-#pragma unroll
-      for (int k = 0; k < LOADS; ++k) {
+      // element k of this round: in the band, and its pixel index
+      auto at = [&](int k, size_t& pix) -> bool {
         const int idx = base + k * C::NT;
         const int y = (int)__umulhi((unsigned)idx, inv_qw), x = idx - y * QW;
         const int gr = r0 + y, gc = c0 + x;
-        v[k] = (idx < nq && gr < Hp && gc < Wp) ? __ldg(band + (size_t)gr * Wp + gc) : vmin;
+        pix = (size_t)gr * Wp + gc;
+        return idx < nq && gr < Hp && gc < Wp;
+      };
+      float v[LOADS];
+      if (pre.nload == 1) {
+        // the raw band-0 samples, all loads in flight before the first
+        // use, then the op list on each
+        auto load_all = [&](const auto* p) {
+#pragma unroll
+          for (int k = 0; k < LOADS; ++k) {
+            size_t pix;
+            v[k] = at(k, pix) ? (float)__ldg(p + pix * pre.stride) : vmin;
+          }
+        };
+        switch (pre.dtype) {
+          case prestage::U8: load_all(static_cast<const unsigned char*>(raw)); break;
+          case prestage::I32: load_all(static_cast<const int*>(raw)); break;
+          default: load_all(static_cast<const float*>(raw)); break;
+        }
+        if (pre.n > 0) {
+#pragma unroll
+          for (int k = 0; k < LOADS; ++k) {
+            float one[1] = {v[k]};
+            prestage::apply<1>(pre, one, 1);
+            v[k] = one[0];
+          }
+        }
+      } else {
+        // a chain that selects bands: each pixel's bands in turn, one at a
+        // time (unrolled, its MAX_BANDS registers per load would raise the
+        // register count of every instance, and cost resident blocks)
+#pragma unroll 1
+        for (int k = 0; k < LOADS; ++k) {
+          size_t pix;
+          const int idx = base + k * C::NT;
+          const float x = at(k, pix) ? prestage::first(raw, pre, pix) : vmin;
+          if (idx < nq) qt[idx] = (unsigned char)quantize(x, vmin, span, levels);
+        }
+        continue;
       }
 #pragma unroll
       for (int k = 0; k < LOADS; ++k) {
@@ -239,8 +284,9 @@ glcm_kernel(const float* __restrict__ band, float* __restrict__ out, int H,
       return pt[y * PW + x];
     } else {
       const size_t at = (size_t)(r0 + y + halo - R) * Wp + (c0 + x + halo - R);
-      return C::offset(quantize(__ldg(band + at), vmin, span, levels) * S +
-                       quantize(__ldg(band + at + (long long)dr * Wp + dc), vmin, span, levels));
+      return C::offset(
+          quantize(prestage::first(raw, pre, at), vmin, span, levels) * S +
+          quantize(prestage::first(raw, pre, at + (long long)dr * Wp + dc), vmin, span, levels));
     }
   };
   Mask<MW> mask;
@@ -346,7 +392,8 @@ glcm_kernel(const float* __restrict__ band, float* __restrict__ out, int H,
 }
 
 struct Args {
-  const float* band;
+  const void* raw;  // the raw tile, read through pre
+  const prestage::Ops* pre;
   float* out;
   int H, W, radius, dr, dc, levels;
   float vmin, span;
@@ -384,7 +431,7 @@ int run(const Args& a) {
   const dim3 block(32, C::NY);
   const dim3 grid((a.W + TW - 1) / TW, (a.H + C::TH - 1) / C::TH);
   glcm_kernel<S, KR, CountT, kTiled><<<grid, block, smem, a.stream>>>(
-      a.band, a.out, a.H, a.W, a.radius, a.dr, a.dc, a.levels, a.vmin, a.span);
+      a.raw, *a.pre, a.out, a.H, a.W, a.radius, a.dr, a.dc, a.levels, a.vmin, a.span);
   return (int)cudaGetLastError();
 }
 
@@ -421,10 +468,13 @@ int glcm(const Args& a) {
 
 }  // namespace
 
-extern "C" int glcm_features_f32(const float* band, float* out, int H, int W,
-                                 int radius, int dr, int dc, int levels,
-                                 float vmin, float span, void* stream) {
-  return glcm(Args{band, out, H, W, radius, dr, dc, levels, vmin, span,
+// raw: the (H + 2 halo, W + 2 halo[, bands]) tile, read through pre (band 0
+// of the op list's output)
+extern "C" int glcm_features_f32(const void* raw, const prestage::Ops* pre, float* out, int H,
+                                 int W, int radius, int dr, int dc, int levels, float vmin,
+                                 float span, void* stream) {
+  if (raw == nullptr || pre == nullptr) return (int)cudaErrorInvalidValue;
+  return glcm(Args{raw, pre, out, H, W, radius, dr, dc, levels, vmin, span,
                    (cudaStream_t)stream, nullptr});
 }
 
@@ -436,6 +486,7 @@ extern "C" int glcm_features_f32(const float* band, float* out, int H, int W,
 // per thread (cudaFuncGetAttributes).
 extern "C" int glcm_features_occupancy(int H, int W, int radius, int dr, int dc,
                                        int levels, int* info) {
-  return glcm(Args{nullptr, nullptr, H, W, radius, dr, dc, levels, 0.0f, 1.0f,
+  static const prestage::Ops none{};
+  return glcm(Args{nullptr, &none, nullptr, H, W, radius, dr, dc, levels, 0.0f, 1.0f,
                    nullptr, info});
 }

@@ -1,9 +1,13 @@
 """B2 · per-pixel GLCM Haralick features (paper pipeline P2).
 
 ``glcm_features_cuda`` launches the hand-written Hopper kernel
-(``csrc/glcm.cu``), replacing ``repro.kernels.glcm.glcm_features``.
-``glcm_features_plain`` is the same function in plain PyTorch: the CPU path,
-and the card-side reference the kernel is held against.  Both compute the
+(``csrc/glcm.cu``), replacing ``repro.kernels.glcm.glcm_features``.  Like
+the Pallas kernel it takes the raw tile (uint8, int32 or float32, with or
+without a band axis) and applies the plan layer's fused pre-stage ``pre``
+and the band-0 selection as it loads each sample.
+``glcm_features_plain`` is the same function in plain PyTorch on the
+pre-stage's float32 band: the CPU path, and the card-side reference the
+kernel is held against.  Both compute the
 features as ``repro``'s oracle does (``filters/texture.py``: variance as
 E[(i - mu)^2]), not as the Pallas body does (E[i^2] - mu^2).
 """
@@ -14,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, prestage
 
 #: the kernel's pair codes q1·S + q2 (S = 8, or 16 above 8 levels) index at
 #: most 256 bins, and each thread keeps its S^2 counts as bytes in shared
@@ -105,11 +109,15 @@ def glcm_features_plain(
 
 def glcm_features_cuda(
     band: torch.Tensor, radius: int = 2, offset: Tuple[int, int] = (0, 1),
-    levels: int = 8, vmin: float = 0.0, vmax: float = 4096.0,
+    levels: int = 8, vmin: float = 0.0, vmax: float = 4096.0, pre: prestage.Ops = (),
 ) -> torch.Tensor:
-    """Launch the B2 kernel on a float32 CUDA band (same contract as
-    :func:`glcm_features_plain`); counts its launches in ``.launches``."""
-    _build.require("glcm_features", "band", band, 2)
+    """Launch the B2 kernel on a raw CUDA tile (H + 2·halo, W + 2·halo[,
+    bands]): equals ``glcm_features_plain(band0(apply_plain(pre, band)))``;
+    counts its launches in ``.launches``."""
+    if band.device.type != "cuda":
+        raise ValueError(f"glcm_features: band must be a CUDA tensor, got {band.device}")
+    if band.dim() not in (2, 3):
+        raise ValueError(f"glcm_features: band must have 2 or 3 dims, got {tuple(band.shape)}")
     if radius < 0:
         raise ValueError(f"glcm_features: radius must be >= 0, got {radius}")
     if not 1 <= levels <= MAX_LEVELS:
@@ -119,10 +127,12 @@ def glcm_features_cuda(
     H, W = band.shape[0] - 2 * halo, band.shape[1] - 2 * halo
     if H <= 0 or W <= 0:
         raise ValueError(f"glcm_features: band {tuple(band.shape)} smaller than its halo {halo}")
+    band = prestage.raw_input("glcm_features", band)
+    ops = prestage.encode("glcm_features", pre, band, 1)
     out = torch.empty((H, W, 5), dtype=torch.float32, device=band.device)
     _build.launch(
         "glcm_features", "glcm_features_f32", band.device,
-        band.data_ptr(), out.data_ptr(), H, W, radius, dr, dc, levels,
+        band.data_ptr(), ctypes.addressof(ops), out.data_ptr(), H, W, radius, dr, dc, levels,
         vmin, max(1e-12, vmax - vmin),
     )
     glcm_features_cuda.launches += 1

@@ -2,8 +2,12 @@
 
 ``meanshift_cuda`` launches the hand-written Hopper kernel
 (``csrc/meanshift.cu``), replacing ``repro.kernels.meanshift.meanshift``.
-``meanshift_plain`` is the same function in plain PyTorch: the CPU path,
-and the card-side reference the kernel is held against.
+Like the Pallas kernel it takes the raw haloed tile (uint8, int32 or
+float32, ``Bin`` bands) and applies the plan layer's fused pre-stage
+``pre`` (which may map ``Bin`` bands to ``B``) as it stages the tile.
+``meanshift_plain`` is the same function in plain PyTorch on the
+pre-stage's output: the CPU path, and the card-side reference the kernel is
+held against.
 
 The ``d2 <= hr^2`` membership is a hard threshold, so the plain version
 performs exactly the kernel's float32 operations in the kernel's order, one
@@ -19,7 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, prestage
 
 #: the kernel keeps B range values per thread in registers (B is a template)
 MAX_BANDS = 8
@@ -70,19 +74,27 @@ def _mode_search(x: torch.Tensor, hs: int, hr: float, n_iter: int, dens=None) ->
     return v
 
 
-def meanshift_cuda(x: torch.Tensor, hs: int, hr: float, n_iter: int) -> torch.Tensor:
-    """Launch the B3 kernel on a float32 CUDA tensor (same contract as
-    :func:`meanshift_plain`); counts its launches in ``.launches``."""
-    _build.require("meanshift", "x", x, 3)
-    H, W, B = x.shape[0] - 2 * hs, x.shape[1] - 2 * hs, x.shape[2]
+def meanshift_cuda(x: torch.Tensor, hs: int, hr: float, n_iter: int,
+                   pre: prestage.Ops = ()) -> torch.Tensor:
+    """Launch the B3 kernel on a raw CUDA tile (H + 2hs, W + 2hs, Bin):
+    equals ``meanshift_plain(apply_plain(pre, x), hs, hr, n_iter)``; counts
+    its launches in ``.launches``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"meanshift: x must be a CUDA tensor, got {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"meanshift: x must have 3 dims, got {tuple(x.shape)}")
+    H, W = x.shape[0] - 2 * hs, x.shape[1] - 2 * hs
+    B = prestage.out_bands(pre, x.shape[2])
     if H <= 0 or W <= 0:
         raise ValueError(f"meanshift: x {tuple(x.shape)} smaller than its halo {hs}")
     if not 1 <= B <= MAX_BANDS:
         raise ValueError(f"meanshift: bands must be in [1, {MAX_BANDS}], got {B}")
+    x = prestage.raw_input("meanshift", x)
+    ops = prestage.encode("meanshift", pre, x, B)
     out = torch.empty((H, W, B), dtype=torch.float32, device=x.device)
     _build.launch(
         "meanshift", "meanshift_f32", x.device,
-        x.data_ptr(), out.data_ptr(), H, W, B, hs, _hr2(hr), n_iter,
+        x.data_ptr(), ctypes.addressof(ops), out.data_ptr(), H, W, B, hs, _hr2(hr), n_iter,
     )
     meanshift_cuda.launches += 1
     return out

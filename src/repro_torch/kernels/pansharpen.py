@@ -2,8 +2,12 @@
 
 ``pansharpen_cuda`` launches the hand-written Hopper kernel
 (``csrc/pansharpen.cu``), replacing ``repro.kernels.pansharpen.pansharpen``.
-``pansharpen_plain`` is the same function in plain PyTorch: the CPU path,
-and the card-side reference the kernel is held against.
+It reads both inputs raw (uint8, int32 or float32) and applies the plan
+layer's fused pre-stages in its prologue: ``pre_xs`` on the XS pixels,
+``pre_pan`` on the PAN pixels, then PAN's band 0, as the Pallas kernel
+does.  ``pansharpen_plain`` is the same function in plain PyTorch on the
+pre-stages' output: the CPU path, and the card-side reference the kernel is
+held against.
 
 The box sum is the Pallas kernel's shifted-window accumulation in u-then-v
 order.  ``repro``'s jnp oracle takes it from float32 cumulative sums, which
@@ -12,9 +16,11 @@ to float32 rounding at any width.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, prestage
 
 
 def pansharpen_plain(xs_up: torch.Tensor, pan: torch.Tensor, radius: int) -> torch.Tensor:
@@ -32,24 +38,36 @@ def pansharpen_plain(xs_up: torch.Tensor, pan: torch.Tensor, radius: int) -> tor
     return xs_up.to(torch.float32) * ratio[..., None]
 
 
-def pansharpen_cuda(xs_up: torch.Tensor, pan: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the B1 kernel on float32 CUDA tensors (same contract as
-    :func:`pansharpen_plain`); counts its launches in ``.launches``."""
-    _build.require("pansharpen", "xs_up", xs_up, 3)
-    _build.require("pansharpen", "pan", pan, 3)
-    H, W, B = xs_up.shape
+def pansharpen_cuda(xs_up: torch.Tensor, pan: torch.Tensor, radius: int,
+                    pre_xs: prestage.Ops = (), pre_pan: prestage.Ops = ()) -> torch.Tensor:
+    """Launch the B1 kernel on raw CUDA tensors: equals
+    ``pansharpen_plain(apply_plain(pre_xs, xs_up), apply_plain(pre_pan,
+    pan), radius)``; counts its launches in ``.launches``."""
+    for name, t in (("xs_up", xs_up), ("pan", pan)):
+        if t.device.type != "cuda":
+            raise ValueError(f"pansharpen: {name} must be a CUDA tensor, got {t.device}")
+        if t.dim() != 3:
+            raise ValueError(f"pansharpen: {name} must have 3 dims, got {tuple(t.shape)}")
+    if pan.device != xs_up.device:
+        raise ValueError("pansharpen: xs_up and pan must be on one device")
+    xs_up = prestage.raw_input("pansharpen", xs_up)
+    pan = prestage.raw_input("pansharpen", pan)
+    H, W, Bin = xs_up.shape
     if pan.shape[:2] != (H + 2 * radius, W + 2 * radius):
         raise ValueError(
             f"pansharpen: pan {tuple(pan.shape)} must be xs_up {tuple(xs_up.shape)} "
             f"padded by radius {radius}"
         )
-    if pan.device != xs_up.device:
-        raise ValueError("pansharpen: xs_up and pan must be on one device")
+    B = prestage.out_bands(pre_xs, Bin)
+    if B > prestage.MAX_BANDS:
+        raise ValueError(f"pansharpen: {B} output bands, at most {prestage.MAX_BANDS}")
+    ops_xs = prestage.encode("pansharpen", pre_xs, xs_up, B)
+    ops_pan = prestage.encode("pansharpen", pre_pan, pan, 1)
     out = torch.empty((H, W, B), dtype=torch.float32, device=xs_up.device)
     _build.launch(
         "pansharpen", "pansharpen_f32", xs_up.device,
-        xs_up.data_ptr(), pan.data_ptr(), out.data_ptr(),
-        H, W, B, pan.shape[2], radius,
+        xs_up.data_ptr(), ctypes.addressof(ops_xs), pan.data_ptr(), ctypes.addressof(ops_pan),
+        out.data_ptr(), H, W, B, radius,
     )
     pansharpen_cuda.launches += 1
     return out

@@ -181,6 +181,14 @@ def _attn(h, blk: Block, cfg: ModelConfig, positions, cache_kv=None, pos: int = 
         new_cache = (k, v)
     else:
         ck, cv = cache_kv
+        if pos + S > ck.shape[1]:
+            # the slice would be short (or empty) and the step would attend
+            # without its own keys; the reference clamps the write instead,
+            # which overwrites the last cached position
+            raise ValueError(
+                f"decode past the KV cache: positions {pos}..{pos + S - 1} do not "
+                f"fit a cache of length {ck.shape[1]}"
+            )
         ck[:, pos : pos + S] = k
         cv[:, pos : pos + S] = v
         kv_pos = torch.arange(ck.shape[1], device=h.device)

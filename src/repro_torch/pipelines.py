@@ -22,6 +22,7 @@ from repro_torch.core import (
     Pipeline,
     Source,
     StreamingExecutor,
+    global_plan_cache,
     resolve_device,
 )
 from repro_torch.filters import (
@@ -188,6 +189,8 @@ def run_pipeline(
     mapper_factory=None,
     sink=None,
     device=None,
+    plan_cache=None,
+    use_jit: bool = True,
     **builder_kw,
 ):
     """Stream a benchmark pipeline region by region on ``device``.
@@ -200,6 +203,12 @@ def run_pipeline(
     RTIF path or an ndarray (opened on ``device``); ``sink=`` accepts a
     :class:`~repro_torch.core.Mapper` or a path and replaces
     ``mapper_factory``.  ``"streaming"`` is the only executor so far.
+
+    The run goes through the plan layer: ``plan_cache`` defaults to the
+    process-wide registry (:func:`~repro_torch.core.global_plan_cache`);
+    pass your own :class:`~repro_torch.core.PlanCache` to isolate counters.
+    Pass the built ``(pipeline, mapper)`` pair to reuse its plans in a later
+    run.  ``use_jit=False`` runs the eager pull instead (the oracle).
 
     Returns ``(StreamResult, mapper)``.
     """
@@ -227,5 +236,7 @@ def run_pipeline(
             raise ValueError(
                 f"source {src.name!r} lives on {src.device}, but the run is on {dev}"
             )
-    res = StreamingExecutor(pipeline, mapper, splitter).run(keep_outputs=keep_outputs)
+    cache = plan_cache if plan_cache is not None else global_plan_cache()
+    res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,
+                            use_jit=use_jit).run(keep_outputs=keep_outputs)
     return res, mapper

@@ -16,13 +16,16 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch import filters as TF  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
-from repro_torch.core import Pipeline, StripeSplitter, TileSplitter  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    PlanCache, Pipeline, StripeSplitter, TileSplitter, global_plan_cache,
+)
 from repro_torch.kernels import LAUNCHERS  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
 from repro_torch.kernels import glcm as T_glcm  # noqa: E402
 from repro_torch.kernels import meanshift as T_ms  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pansharpen as T_ps  # noqa: E402
+from repro_torch.kernels import prestage  # noqa: E402
 from repro_torch.kernels import ssd_scan as T_ssd  # noqa: E402
 from repro_torch.models import lm as T_lm  # noqa: E402
 from repro_torch.raster import ArraySource, MemoryMapper  # noqa: E402
@@ -188,11 +191,16 @@ def test_meanshift_kernel_counts_its_launches(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(20, 20, 3, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        T_ms.meanshift_cuda(x.to(torch.float64), 2, 120.0, 1)
-    with pytest.raises(ValueError, match="contiguous"):
-        T_ms.meanshift_cuda(x.transpose(0, 1), 2, 120.0, 1)
+    """B1–B3 read raw uint8, int32 or float32 tiles in any layout (another
+    real dtype is cast to float32 first, as the plain versions do); what
+    they cannot read, or shapes they do not take, raise."""
+    x = _t(RNG.uniform(0, 255, (20, 20, 3)).astype(np.float32), cuda)
+    want = T_ms.meanshift_cuda(x, 2, 120.0, 1)
+    assert torch.equal(T_ms.meanshift_cuda(x.to(torch.float64), 2, 120.0, 1), want)
+    assert torch.equal(T_ms.meanshift_cuda(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                           2, 120.0, 1), want)
+    with pytest.raises(TypeError, match="cannot read"):
+        T_ms.meanshift_cuda(x.to(torch.complex64), 2, 120.0, 1)
     with pytest.raises(ValueError, match="bands"):
         T_ms.meanshift_cuda(torch.zeros(20, 20, 9, device=cuda), 2, 120.0, 1)
     with pytest.raises(ValueError, match="padded"):
@@ -456,3 +464,178 @@ def test_reduced_models_served_on_cuda_match_cpu(cuda, arch):
     got = ServeEngine(cfg, gpu, max_seq=64, device=cuda).generate(prompts, 8)
     want = ServeEngine(cfg, cpu, max_seq=64, device="cpu").generate(prompts, 8)
     assert torch.equal(got.cpu(), want)
+
+
+# --------------------------------------------------------------------------
+# the fused pre-stage of B1–B3: each prologue, each raw dtype, with and
+# without an op list, bit for bit against apply_plain and the plain kernel
+# --------------------------------------------------------------------------
+RAW = {"uint8": (torch.uint8, 255), "int32": (torch.int32, 4095), "float32": (torch.float32, 4095)}
+
+
+def _raw(shape, dtype, seed=0):
+    tdt, hi = RAW[dtype]
+    a = np.random.default_rng(seed).uniform(0, hi, shape)
+    if tdt != torch.float32:
+        a = np.round(a)
+    return torch.from_numpy(a.astype(np.float32)).to(tdt)
+
+
+def _chains(dtype, bands):
+    """Op lists a plan can fuse onto a raw tile of ``dtype``."""
+    top = 256.0 if dtype == "uint8" else 4096.0
+    out = {"none": (),
+           "to_uint8": TF.Convert(np.uint8, in_range=(0.0, top)).pointwise_ops(),
+           "rescale": TF.Convert(np.float32, in_range=(0.0, top),
+                                 out_range=(0.0, 255.0)).pointwise_ops()}
+    if bands >= 4:
+        out["ndvi"] = TF.ndvi(0, 3).pointwise_ops()
+        out["band2_to_uint16"] = (TF.BandMath(ops=(("band", 2),), out_bands=1).pointwise_ops()
+                                  + TF.Convert(np.uint16, in_range=(5.0, 3000.0)).pointwise_ops())
+    return out
+
+
+@pytest.mark.parametrize("dtype", list(RAW))
+@pytest.mark.parametrize("bands", [1, 4])
+def test_glcm_prologue_is_bit_identical(cuda, dtype, bands):
+    args = (2, (0, 1), 8, 0.0, 256.0)
+    x = _raw((37, 45, bands), dtype, 1)
+    for name, pre in _chains(dtype, bands).items():
+        want = ops.glcm_features(x, *args, pre=pre)  # the CPU: apply_plain, band 0, plain
+        got = T_glcm.glcm_features_cuda(x.to(cuda), *args, pre=pre)
+        plain = T_glcm.glcm_features_plain(
+            prestage.apply_plain(pre, x.to(cuda))[..., 0].to(torch.float32), *args)
+        assert torch.equal(got, plain), name
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", list(RAW))
+@pytest.mark.parametrize("hs", [1, 3, 4])
+def test_meanshift_prologue_is_bit_identical(cuda, dtype, hs):
+    x = _raw((20 + 2 * hs, 70 + 2 * hs, 4), dtype, 2)
+    for name, pre in _chains(dtype, 4).items():
+        hr = 0.05 if name == "ndvi" else (8.0 if name == "rescale" else 120.0)
+        got = T_ms.meanshift_cuda(x.to(cuda), hs, hr, 3, pre=pre)
+        want = T_ms.meanshift_plain(prestage.apply_plain(pre, x.to(cuda)), hs, hr, 3)
+        assert got.shape[-1] == prestage.out_bands(pre, 4)
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("xs_dtype", list(RAW))
+@pytest.mark.parametrize("pan_dtype", list(RAW))
+def test_pansharpen_prologue_is_bit_identical(cuda, xs_dtype, pan_dtype):
+    xs = _raw((33, 41, 4), xs_dtype, 3).to(cuda)
+    pan = (_raw((37, 45, 2), pan_dtype, 4) + 1).to(cuda)
+    pre_pans = [c for k, c in _chains(pan_dtype, 2).items() if k in ("none", "rescale")]
+    for pre_xs in _chains(xs_dtype, 4).values():
+        for pre_pan in pre_pans:
+            got = T_ps.pansharpen_cuda(xs, pan, 2, pre_xs, pre_pan)
+            want = T_ps.pansharpen_plain(prestage.apply_plain(pre_xs, xs),
+                                         prestage.apply_plain(pre_pan, pan), 2)
+            assert torch.equal(got, want), (pre_xs, pre_pan)
+
+
+# --------------------------------------------------------------------------
+# the plan layer on the card: one CUDA-graph capture per signature
+# --------------------------------------------------------------------------
+def _fused_graph(name, dev):
+    rng = np.random.default_rng(7)
+    pan = rng.integers(1, 4096, (64, 48, 1)).astype(np.uint16)
+    xs = rng.integers(1, 4096, (48, 40, 4)).astype(np.uint16)
+    p = Pipeline()
+    if name == "P2f":
+        up = p.add(TF.Convert(np.uint8, in_range=(0.0, 4096.0)), [p.add(ArraySource(pan, device=dev))])
+        f = p.add(TF.HaralickTextures(2, (0, 1), 8, vmin=0.0, vmax=256.0), [up])
+    elif name == "P5f":
+        up = p.add(TF.Convert(np.float32, in_range=(0.0, 4096.0), out_range=(0.0, 255.0)),
+                   [p.add(ArraySource(xs, device=dev))])
+        f = p.add(TF.MeanShift(3, hr=8.0, n_iter=4), [up])
+    else:  # the B1 chain
+        sx = p.add(ArraySource(xs[:16, :12], device=dev))
+        sp = p.add(ArraySource(pan, device=dev))
+        up = p.add(TF.Resample(4, method="bicubic"), [sx])
+        cp = p.add(TF.Convert(np.float32, in_range=(0.0, 4096.0), out_range=(0.0, 1.0)), [sp])
+        f = p.add(TF.PansharpenFuse(radius=2), [up, cp])
+    return p, p.add(MemoryMapper(), [f])
+
+
+def _graphs_on(name, dev):
+    if name in ("P2f", "P5f", "B1f"):
+        return _fused_graph(name, dev)
+    rng = np.random.default_rng(8)
+    arrays = {"P2": [rng.integers(1, 4096, (64, 48, 1))], "P3": [rng.integers(1, 4096, (16, 12, 4)),
+              rng.integers(1, 4096, (64, 48, 1))], "P5": [rng.integers(0, 600, (48, 40, 4))],
+              "P1": [rng.integers(1, 4096, (48, 40, 1))], "P4": [rng.integers(1, 4096, (48, 40, 4))],
+              "P6": [rng.integers(1, 4096, (48, 40, 4))], "P7": [rng.integers(1, 4096, (16, 12, 4))],
+              "P9": [rng.integers(1, 4096, (48, 40, 4)) for _ in range(3)]}[name]
+    kw = dict(hs=2, n_iter=2) if name == "P5" else {}
+    return TP.ALL[name](*[ArraySource(a.astype(np.uint16), device=dev) for a in arrays], **kw)
+
+
+CAPTURED = ["P1", "P2", "P3", "P4", "P5", "P6", "P7", "P9", "P2f", "P5f", "B1f"]
+
+
+@pytest.mark.parametrize("name", CAPTURED)
+@pytest.mark.parametrize("splitter", [StripeSplitter(5), TileSplitter(13, 17)])
+def test_captured_plan_replays_equal_eager(cuda, name, splitter):
+    """Every region replays its signature's captured graph; the output
+    equals the eager pull bit for bit, the counters are the CPU run's, and
+    the kernels' launch counts are one per region plus each capture's
+    warm-up run."""
+    cache = PlanCache()
+    p, m = _graphs_on(name, cuda)
+    before = {k: fn.launches for k, fn in LAUNCHERS.items()}
+    res = TP.run_pipeline((p, m), splitter=splitter, device=cuda, plan_cache=cache)
+    after = {k: fn.launches for k, fn in LAUNCHERS.items()}
+    compiled = m.result.copy()
+    entries = cache.entries()
+    assert entries and all(e.captured and e.pool_bytes >= 0 for e in entries)
+    per_region = {k: sum(e.launches_per_replay[k] for e in entries) for k in before}
+    if len(entries) == 1:
+        n = res[0].regions_processed + 1
+        assert {k: after[k] - before[k] for k in before} == {k: n * v for k, v in per_region.items()}
+    TP.run_pipeline((p, m), splitter=splitter, device=cuda, use_jit=False)
+    assert np.array_equal(compiled, m.result)
+    cpu_cache = PlanCache()
+    pc, mc = _graphs_on(name, "cpu")
+    TP.run_pipeline((pc, mc), splitter=splitter, device="cpu", plan_cache=cpu_cache)
+    assert cache.stats_snapshot() == cpu_cache.stats_snapshot()
+
+
+def test_capture_persistent_state_equals_eager(cuda):
+    def graph():
+        p = Pipeline()
+        s = p.add(ArraySource(RNG.integers(1, 4096, (40, 30, 3)).astype(np.uint16), device=cuda))
+        return p, p.add(MemoryMapper(), [p.add(TF.BandStatistics(3), [s])])
+
+    p, m = graph()
+    comp = TP.run_pipeline((p, m), splitter=StripeSplitter(7), device=cuda,
+                           plan_cache=PlanCache())[0]
+    eager = TP.run_pipeline((p, m), splitter=StripeSplitter(7), device=cuda, use_jit=False)[0]
+    for k, v in comp.persistent_results["BandStatistics"].items():
+        assert torch.equal(v, eager.persistent_results["BandStatistics"][k]), k
+
+
+def test_fused_plans_fold_their_chains(cuda):
+    for name in ("P2f", "P5f", "B1f"):
+        p, m = _fused_graph(name, cuda)
+        assert len(p.describe_pull(m, p.info(m).full_region).fused_nodes) == 1, name
+
+
+def test_repeated_runs_hold_device_memory_flat(cuda):
+    """``run_pipeline(name, ...)`` builds a fresh pipeline per call and
+    captures its plans into the process-wide cache: the captures share one
+    memory pool and a collected pipeline's entries are dropped, so the
+    device memory reserved after many calls is what one call leaves."""
+    xs = RNG.integers(1, 4096, (64, 48, 4)).astype(np.uint16)
+    pan = RNG.integers(1, 4096, (256, 192, 1)).astype(np.uint16)
+    held, entries = [], []
+    for _ in range(12):
+        TP.run_pipeline("P3", ArraySource(xs, device=cuda), ArraySource(pan, device=cuda),
+                        splitter=StripeSplitter(4), device=cuda)
+        entries.append(len(global_plan_cache()))  # drops the collected pipeline's entries
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # what is cached but unused goes back to the device
+        held.append(torch.cuda.memory_reserved(cuda))
+    assert max(held[2:]) <= held[1], held
+    assert entries == [0] * 12, entries

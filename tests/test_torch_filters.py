@@ -467,9 +467,15 @@ def test_persistent_hook_sees_each_region_once_and_state_stays_on_the_device():
     seen = []
     p, m = _stats_graph(lambda a: TArray(a, device="cpu"), Pipeline, Counting(4),
                         MemoryMapper(), U16)
-    res = StreamingExecutor(p, m, TTile(13, 17)).run()
+    res = StreamingExecutor(p, m, TTile(13, 17), use_jit=False).run()
     regions = TTile(13, 17).split(p.info(m).full_region, p.info(m))
     assert seen == regions and res.regions_processed == len(regions)
+    assert float(res.persistent_results["Counting"]["count"]) == U16.shape[0] * U16.shape[1]
+    # the compiled path folds each region once too, through its plan's
+    # canonical region (the edge tiles' virtual pad pixels masked out)
+    seen.clear()
+    res = StreamingExecutor(p, m, TTile(13, 17)).run()
+    assert len(seen) == len(regions) and res.regions_processed == len(regions)
     assert float(res.persistent_results["Counting"]["count"]) == U16.shape[0] * U16.shape[1]
     # a pipeline without persistent nodes reports none
     assert TP.run_pipeline("IO", U16, device="cpu")[0].persistent_results == {}

@@ -236,6 +236,27 @@ def test_prefill_and_decode_match(arch, vocab, prompt, max_seq):
         assert (tl[..., vocab:] == -1e30).all()
 
 
+def test_decode_past_a_full_cache_raises_where_the_reference_clamps():
+    """A decode step at ``pos`` equal to the cache length: the reference's
+    ``dynamic_update_slice`` clamps the write onto the last cached position
+    (overwriting the prompt's last key), while the port refuses the step
+    with a ``ValueError`` naming the cache length."""
+    jc, tc, params, model = _models("olmo-1b")
+    toks = _tokens(jc, (2, 8), 0)
+    _, jcache = J_lm.prefill(params, jc, jnp.asarray(toks), max_seq=8)
+    _, tcache = T_lm.prefill(model, tc, _t(toks), max_seq=8)
+    assert jcache["pos"] == tcache["pos"] == 8
+    tok = _tokens(jc, (2, 1), 100)
+    before = np.asarray(jcache["k"]).copy()
+    jl, jnext = J_lm.decode_step(params, jc, jcache, jnp.asarray(tok))
+    after = np.asarray(jnext["k"])
+    assert np.isfinite(np.asarray(jl)).all()
+    np.testing.assert_array_equal(after[:, :, :7], before[:, :, :7])
+    assert not np.array_equal(after[:, :, 7], before[:, :, 7])  # clamped onto slot 7
+    with pytest.raises(ValueError, match="cache of length 8"):
+        T_lm.decode_step(model, tc, tcache, _t(tok))
+
+
 @pytest.mark.parametrize("arch,vocab", MODELS[:2])
 def test_serve_engine_greedy_tokens_identical(arch, vocab):
     jc, tc, params, model = _models(arch, vocab, seed=3)
