@@ -59,11 +59,22 @@
    (fused) output equal to the eager (unfused) pull bit for bit; each
    prologue is held against ``prestage.apply_plain`` and the plain kernel
    on one stripe (``kernel_checks``);
-8. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+8. the executors (``executor`` lines): P2, P3, P5 and P4, each one built
+   pipeline run through ``execute`` with ``prefetch`` 0 (the serial run)
+   and 2 and with ``cache=False``, through ``run_pipeline(executor="pool")``
+   with 2 and 4 workers and through ``run_pool(scheduler="static")``, then
+   P2 under an ``AutoSplitter`` whose budget is one stripe and P5 under
+   ``VMEMTileSplitter`` at its H100 default (ragged tiles, one capture per
+   tile shape).  Each line: three runs, each output equal to the serial
+   run's bit for bit, walls, the cache's counters after each run (one
+   compile per signature whatever the executor), the memory held after
+   each run (flat), and one profiled run (idle share, launches against the
+   device trace);
+9. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Every ``run_pipeline`` call goes through the plan layer (a CUDA-graph
 capture per signature, replayed per stripe) unless it says
-``use_jit=False``.  Each pipeline of steps 3, 6 and 7 ends with a run under
+``use_jit=False``.  Each pipeline of steps 3, 6, 7 and 8 ends with a run under
 ``torch.profiler`` whose launch counts (set to 0 just before it) must equal
 each kernel's launches in the device trace: a replay launches the captured
 kernels without their wrappers, which the plan layer stands in for.  Step 3
@@ -103,15 +114,20 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    AutoSplitter,
     ImageRegion,
     PersistentFilter,
     Pipeline,
     PlanCache,
     StripeSplitter,
+    VMEMTileSplitter,
+    execute,
     global_plan_cache,
     reset_global_plan_cache,
+    run_pool,
     windowed_requests,
 )
+from repro_torch.core.splitting import H100_L2_BYTES  # noqa: E402
 from repro_torch.filters import (  # noqa: E402
     BandStatistics,
     Convert,
@@ -891,6 +907,129 @@ def fused_runs(xs, pan) -> tuple:
     return runs, checks
 
 
+# ---------------------------------------------------------------------------
+# the executors: prefetch, the re-jit baseline, the pool, the auto splitters
+# ---------------------------------------------------------------------------
+EXECUTOR_CELLS = ("P2", "P3", "P5", "P4")
+
+
+def executor_modes(split):
+    """Each executor line's run of a built pair: ``run(p, m, cache)``."""
+    return {
+        "prefetch 0": lambda p, m, c: execute(p, m, split(), prefetch=0, plan_cache=c),
+        "prefetch 2": lambda p, m, c: execute(p, m, split(), prefetch=2, plan_cache=c),
+        "cache=False": lambda p, m, c: execute(p, m, split(), cache=False),
+        "pool 2": lambda p, m, c: TP.run_pipeline((p, m), executor="pool", n_workers=2,
+                                                  splitter=split(), device="cuda",
+                                                  plan_cache=c)[0],
+        "pool 4": lambda p, m, c: TP.run_pipeline((p, m), executor="pool", n_workers=4,
+                                                  splitter=split(), device="cuda",
+                                                  plan_cache=c)[0],
+        "pool 4 static": lambda p, m, c: run_pool(p, m, split(), n_workers=4,
+                                                  scheduler="static", plan_cache=c),
+    }
+
+
+def executor_line(cell: str, mode: str, pair, run, want) -> dict:
+    """:func:`timed_runs` of one executor over the built ``pair``, with a
+    plan cache of its own.  Each run's host result must equal ``want`` (the
+    serial run's; the serial line holds its later runs against its first)
+    bit for bit, and a ``cache=False`` run must leave the memory allocated
+    where it found it."""
+    p, m = pair
+    cache = PlanCache()
+    ref, counters, allocated = [want], [], []
+
+    def one():
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+        res = run(p, m, cache)
+        got = torch.from_numpy(m.result)
+        if ref[0] is None:
+            ref[0] = got.clone()
+        elif not torch.equal(got, ref[0]):
+            raise AssertionError(f"{cell} {mode}: the output differs from the serial run's")
+        counters.append(res.cache_snapshot)
+        return res, got
+
+    walls, (res, got), counts, profiled, held = timed_runs(f"{cell} {mode}", one)
+    torch.cuda.synchronize()
+    allocated.append(torch.cuda.memory_allocated())
+    if res.cache_stats is None and len(set(allocated)) != 1:
+        raise AssertionError(f"{cell} {mode}: the re-jit runs left memory allocated: {allocated}")
+    entries = cache.entries()
+    if res.cache_stats is not None and not (entries and all(e.captured for e in entries)):
+        raise AssertionError(f"{cell} {mode}: a plan ran without its CUDA graph")
+    return dict(cell=cell, mode=mode, regions=res.regions_processed, wall_s=walls,
+                profiled_wall_ms=profiled["wall_ms"], idle_share=profiled["idle_share"],
+                device_busy_ms=profiled["device_busy_ms"],
+                host_launch_calls=profiled["host_launch_calls"],
+                launches={k: n for k, n in counts.items() if n},
+                counters_after_each_run=counters, signatures=len(entries),
+                held_bytes=held, allocated_bytes=allocated, equals_serial=True, output=got)
+
+
+def executor_runs(xs, pan) -> dict:
+    """P2, P3, P5 and P4 through every single-host executor, each line
+    held bit for bit against the serial (``prefetch=0``) run of the same
+    built pipeline; then P2 under an ``AutoSplitter`` whose budget is one
+    of those stripes and P5 under ``VMEMTileSplitter`` at its H100 default
+    (ragged tiles, one capture per tile shape)."""
+    split = lambda: StripeSplitter(n_splits=N_STRIPES)  # noqa: E731
+    builds = {"P2": lambda: TP.p2_textures(pan), "P3": lambda: TP.p3_pansharpening(xs, pan),
+              "P5": lambda: TP.p5_meanshift(xs, **P5_KW), "P4": lambda: TP.p4_classification(xs)}
+    lines = {}
+    for cell in EXECUTOR_CELLS:
+        pair = builds[cell]()
+        want, serial_compiles = None, None
+        for mode, run in executor_modes(split).items():
+            rec = executor_line(cell, mode, pair, run, want)
+            out = rec.pop("output")
+            if want is None:
+                want = out.clone()
+            compiles = [c["compiles"] for c in rec["counters_after_each_run"] if c]
+            if compiles:
+                # one capture per signature, in the first run, whatever the
+                # executor and its number of workers
+                if serial_compiles is None:
+                    serial_compiles = compiles[0]
+                if set(compiles) != {serial_compiles} or rec["signatures"] != serial_compiles:
+                    raise AssertionError(f"{cell} {mode}: compiles {compiles}, "
+                                         f"{rec['signatures']} signatures; the serial run "
+                                         f"compiled {serial_compiles}")
+            print(json.dumps({"executor": f"{cell} {mode}", **rec}), flush=True)
+            lines[f"{cell} {mode}"] = rec
+        if cell == "P2":
+            info = pair[0].info(pair[1])
+            stripe = split().split(info.full_region, info)[0]
+            budget = stripe.num_pixels * info.bytes_per_pixel
+            auto = AutoSplitter(budget)
+            rec = executor_line(cell, "AutoSplitter", pair, lambda p, m, c: execute(
+                p, m, auto, plan_cache=c), want)
+            rec.update(budget_bytes=budget,
+                       split=[str(r) for r in auto.split(info.full_region, info)])
+        elif cell == "P5":
+            info = pair[0].info(pair[1])
+            tiles = VMEMTileSplitter()
+            rec = executor_line(cell, "VMEMTileSplitter", pair, lambda p, m, c: execute(
+                p, m, tiles, plan_cache=c), want)
+            rec.update(budget_bytes=tiles.vmem_budget_bytes,
+                       l2_cache_bytes=torch.cuda.get_device_properties(0).L2_cache_size,
+                       tiles=sorted({str(r.size) for r in tiles.split(info.full_region, info)}))
+            if rec["signatures"] < 2:
+                raise AssertionError(f"P5 VMEMTileSplitter: {rec['signatures']} signature")
+        else:
+            rec = None
+        if rec is not None:
+            rec.pop("output")
+            print(json.dumps({"executor": f"{cell} {rec['mode']}", **rec}), flush=True)
+            lines[f"{cell} {rec['mode']}"] = rec
+        del pair, want
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return lines
+
+
 def kernel_line(rows, launch_counts) -> tuple:
     """The ``kernels`` JSON entries (B1-B5) and the checks behind them."""
     kernels, checks = [], {}
@@ -1236,6 +1375,7 @@ def main(argv: list) -> int:
     print(json.dumps({"stripe_stages_ms": stages}), flush=True)
     plan_runs(xs, pan)
     _, fused_checks = fused_runs(xs, pan)
+    executor_runs(xs, pan)
     del xs, pan
     release_plans()
 

@@ -29,10 +29,19 @@ kernel library's build and load, device constants cached by filters), then
 captures it into a graph, and every call, the first included, copies its
 inputs into the entry's static buffers and replays the graph.  All graphs
 of a device allocate from one shared memory pool, so their intermediates
-take the memory of the largest plan, not the sum of all plans: captures and
-replays on a device are serialized under one lock, and each replay's
-outputs are cloned before the lock is released, so no graph's scratch
-memory is read after another graph has run.  ``CacheStats.compiles``
+take the memory of the largest plan, not the sum of all plans: replays on
+a device are serialized under one lock, and each replay's outputs are
+cloned before the lock is released, so no graph's scratch memory is read
+after another graph has run.
+
+Captures and other threads.  A capture runs in CUDA's "global" mode, in
+which a synchronizing call anywhere fails the capture loudly, and so
+would another thread's device work (a source read, a copy, an allocation)
+issued while it runs.  Each device therefore has a gate
+(:func:`device_work`): a capture holds it alone, while source reads,
+origin vectors, replays, eager pulls and copies to the host hold it
+shared, so prefetch threads and pool workers wait for a capture instead
+of breaking it.  ``CacheStats.compiles``
 counts those first calls and captures, so the port's counters equal the
 reference's on the same pipeline and split.  A closure that cannot be captured raises,
 naming the plan's root node: nothing falls back to the eager pull.
@@ -42,6 +51,7 @@ Counterpart of ``repro.core.execplan``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import weakref
@@ -121,24 +131,31 @@ def read_plan_sources(reads, windows) -> List[torch.Tensor]:
 
     wins = windows if windows else (None,) * len(reads)
     out = []
-    for (s, clamped, region), w in zip(reads, wins):
-        full = s.output_info().full_region
-        have = clamped.clamp(full)
-        if not have.is_empty():
-            arr = boundary_pad(s.generate(have), have, clamped)
-        else:
-            r0, r1, rpad = snap(clamped.row0, clamped.row1, full.rows)
-            c0, c1, cpad = snap(clamped.col0, clamped.col1, full.cols)
-            arr = s.generate(ImageRegion((r0, c0), (r1 - r0, c1 - c0)))
-            arr = _edge_extend(arr, rpad, cpad)
-        if w is not None:
-            arr = boundary_pad(arr, clamped, region)
-        out.append(arr)
+    with device_work(_plan_device(reads)):
+        for (s, clamped, region), w in zip(reads, wins):
+            full = s.output_info().full_region
+            have = clamped.clamp(full)
+            if not have.is_empty():
+                arr = boundary_pad(s.generate(have), have, clamped)
+            else:
+                r0, r1, rpad = snap(clamped.row0, clamped.row1, full.rows)
+                c0, c1, cpad = snap(clamped.col0, clamped.col1, full.cols)
+                arr = s.generate(ImageRegion((r0, c0), (r1 - r0, c1 - c0)))
+                arr = _edge_extend(arr, rpad, cpad)
+            if w is not None:
+                arr = boundary_pad(arr, clamped, region)
+            out.append(arr)
     return out
 
 
 def _plan_device(reads) -> torch.device:
     return reads[0][0].device if reads else torch.device("cpu")
+
+
+def origin_tensor(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A plan's dynamic origin values as one int32 tensor on ``device``."""
+    with device_work(device):
+        return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass
@@ -180,7 +197,7 @@ class PlanDescription:
     def origins(self) -> torch.Tensor:
         """The dynamic origin values as one int32 tensor on the plan's
         device."""
-        return torch.tensor(self.origin_values, dtype=torch.int32, device=self.device)
+        return origin_tensor(self.origin_values, self.device)
 
     def initial_pstates(self) -> Dict[str, Dict[str, torch.Tensor]]:
         return {p.name: p.reset(self.device) for p in self.persistent_nodes}
@@ -199,12 +216,77 @@ def _add_launches(delta: Dict[str, int]) -> None:
         LAUNCHERS[name].launches += n
 
 
+class _CaptureGate:
+    """A device's capture gate, a readers-writer lock: a capture holds it
+    alone (:meth:`exclusive`), every other piece of device work holds it
+    shared (:meth:`shared`).  A waiting capture keeps new shared holders
+    out, so a stream of reads cannot starve it.  Shared holds nest on one
+    thread, and the capturing thread passes its own shared holds; a thread
+    that holds the gate shared cannot start a capture (it would wait for
+    itself), and raises instead."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0  # threads holding the gate shared
+        self._waiting = 0  # captures waiting for it
+        self._owner: Optional[int] = None  # the capturing thread
+        self._depth = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        depth = getattr(self._depth, "n", 0)
+        if depth == 0 and self._owner != me:
+            with self._cond:
+                while self._owner is not None or self._waiting:
+                    self._cond.wait()
+                self._shared += 1
+            counted = True
+        else:
+            counted = False
+        self._depth.n = depth + 1
+        try:
+            yield
+        finally:
+            self._depth.n = depth
+            if counted:
+                with self._cond:
+                    self._shared -= 1
+                    if not self._shared:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        if getattr(self._depth, "n", 0):
+            raise RuntimeError("a CUDA-graph capture cannot start on a thread that is doing "
+                               "other device work (it holds the device's gate shared)")
+        with self._cond:
+            self._waiting += 1
+            try:
+                while self._owner is not None or self._shared:
+                    self._cond.wait()
+            except BaseException:
+                self._waiting -= 1
+                self._cond.notify_all()  # let the readers it held off in
+                raise
+            self._waiting -= 1
+            self._owner = threading.get_ident()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._owner = None
+                self._cond.notify_all()
+
+
 class _DeviceGraphs:
     """The CUDA graphs of one device: the memory pool every capture on it
-    allocates from, and the lock that serializes captures and replays."""
+    allocates from, the lock that serializes replays, and the gate that
+    keeps every other thread's device work out of a capture."""
 
     def __init__(self):
         self.lock = threading.Lock()
+        self.gate = _CaptureGate()
         self.pool = torch.cuda.graph_pool_handle()
 
 
@@ -218,6 +300,16 @@ def _device_graphs(dev: torch.device) -> _DeviceGraphs:
         if index not in _GRAPHS:
             _GRAPHS[index] = _DeviceGraphs()
         return _GRAPHS[index]
+
+
+def device_work(dev: torch.device):
+    """Context in which a thread does device work other than a capture on
+    ``dev``: it waits while a capture runs there.  Nothing to wait for off
+    the GPU."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return _device_graphs(dev).gate.shared()
 
 
 class _CompiledEntry:
@@ -259,11 +351,14 @@ class _CompiledEntry:
     def __call__(self, arrays, pstates, origins):
         if origins.device.type == "cuda":
             graphs = _device_graphs(origins.device)
-            with graphs.lock:
-                if self._graph is None:
-                    self._capture(arrays, pstates, origins, graphs.pool)
-                    self._stats.compiles += 1
-                    self._primed = True
+            if self._graph is None:
+                with graphs.gate.exclusive():  # no other thread's device work
+                    if self._graph is None:
+                        self._capture(arrays, pstates, origins, graphs.pool)
+                        self._stats.compiles += 1
+                        self._primed = True
+                    return self._replay_locked(arrays, pstates, origins)
+            with graphs.gate.shared(), graphs.lock:
                 return self._replay_locked(arrays, pstates, origins)
         if not self._primed:
             with self._lock:
@@ -293,10 +388,9 @@ class _CompiledEntry:
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         try:
-            # capture_error_mode "global" (the default): the streaming
-            # executor drains its write-behind thread before a first call,
-            # so no other thread issues CUDA work during the capture, and a
-            # stray synchronizing call anywhere fails loudly
+            # capture_error_mode "global" (the default): the device's gate
+            # keeps every other thread's device work out of the capture, so
+            # a stray synchronizing call anywhere fails loudly
             with torch.cuda.graph(graph, pool=pool):
                 out, new_ps = self.canonical_fn(self._arrays, self._pstates, self._origins)
         except Exception as e:

@@ -55,7 +55,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.execplan import PlanDescription, _plan_device, read_plan_sources
+from repro_torch.core.execplan import (
+    PlanDescription,
+    _plan_device,
+    origin_tensor,
+    read_plan_sources,
+)
 from repro_torch.core.process_object import (
     ImageInfo,
     Mapper,
@@ -610,7 +615,7 @@ class PullPlan:
         return read_plan_sources(self.reads, self.windows)
 
     def origins(self) -> torch.Tensor:
-        return torch.tensor(self.origin_values, dtype=torch.int32, device=self.device)
+        return origin_tensor(self.origin_values, self.device)
 
     def initial_pstates(self) -> Dict[str, Dict[str, torch.Tensor]]:
         return {p.name: p.reset(self.device) for p in self.persistent_nodes}

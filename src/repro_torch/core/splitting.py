@@ -1,10 +1,10 @@
 """Splitting strategies (paper §II.B, §II.D).
 
 The mapper chooses how the output image is divided into regions: striped or
-tiled with fixed dimensions.  Every splitter must tile the domain *exactly*
-(cover every pixel once).  Counterpart of ``repro.core.splitting``; the
-memory-driven ``AutoSplitter`` and the on-chip-budget tile splitter come
-later.
+tiled with fixed dimensions, or automatically from a memory budget and the
+number of workers.  Every splitter must tile the domain *exactly* (cover
+every pixel once).  Counterpart of ``repro.core.splitting``; ``RowCoverage``
+and the padded-grid helpers come with the DAG and the multi-GPU grid.
 """
 from __future__ import annotations
 
@@ -65,3 +65,49 @@ class TileSplitter(Splitter):
             for r, h in clamped_tile_spans(region.row0, region.row1, self.tile_rows)
             for c, w in clamped_tile_spans(region.col0, region.col1, self.tile_cols)
         ]
+
+
+class AutoSplitter(Splitter):
+    """Paper §II.D: split count "automatically computed using the system
+    specifications (memory and number of MPI processes)".
+
+    Chooses striped regions such that one region's pixel buffer fits in
+    ``memory_budget_bytes`` and the number of splits is a multiple of
+    ``n_workers`` (so the static schedule is balanced)."""
+
+    def __init__(self, memory_budget_bytes: int, n_workers: int = 1):
+        if memory_budget_bytes <= 0 or n_workers <= 0:
+            raise ValueError("budget and n_workers must be positive")
+        self.memory_budget_bytes = memory_budget_bytes
+        self.n_workers = n_workers
+
+    def split(self, region: ImageRegion, info: ImageInfo) -> List[ImageRegion]:
+        bytes_per_row = max(1, region.cols * info.bytes_per_pixel)
+        rows_per_split = max(1, self.memory_budget_bytes // bytes_per_row)
+        n = math.ceil(region.rows / rows_per_split)
+        # round the split count UP to a multiple of n_workers for balance
+        n = max(self.n_workers, math.ceil(n / self.n_workers) * self.n_workers)
+        n = min(n, region.rows) if region.rows > 0 else n
+        return StripeSplitter(n_splits=n).split(region, info)
+
+
+#: NVIDIA H100 SXM5 80 GB: 50 MB of L2 cache, the on-chip level a region's
+#: output tile is sized to (the reference sizes its tiles to 64 MiB of TPU VMEM)
+H100_L2_BYTES = 50 * 2**20
+
+
+class VMEMTileSplitter(Splitter):
+    """Two-level budget auto splitter: square tiles, a multiple of ``align``
+    on each side, whose output pixels fit ``vmem_budget_bytes``.  The name
+    is the reference's (it sized tiles to a TPU core's VMEM); here the
+    default budget is the H100's L2."""
+
+    def __init__(self, vmem_budget_bytes: int = H100_L2_BYTES, align: int = 128):
+        self.vmem_budget_bytes = vmem_budget_bytes
+        self.align = align
+
+    def split(self, region: ImageRegion, info: ImageInfo) -> List[ImageRegion]:
+        bpp = info.bytes_per_pixel
+        side = int(math.sqrt(self.vmem_budget_bytes / max(1, bpp)))
+        side = max(self.align, (side // self.align) * self.align)
+        return TileSplitter(side, side).split(region, info)

@@ -24,6 +24,7 @@ from repro_torch.core import (
     StreamingExecutor,
     global_plan_cache,
     resolve_device,
+    run_pool,
 )
 from repro_torch.filters import (
     Composite,
@@ -185,6 +186,7 @@ def run_pipeline(
     *sources,
     executor: str = "streaming",
     splitter=None,
+    n_workers=None,
     keep_outputs: bool = False,
     mapper_factory=None,
     sink=None,
@@ -202,7 +204,13 @@ def run_pipeline(
     :class:`~repro_torch.core.Source` (which must live on ``device``), an
     RTIF path or an ndarray (opened on ``device``); ``sink=`` accepts a
     :class:`~repro_torch.core.Mapper` or a path and replaces
-    ``mapper_factory``.  ``"streaming"`` is the only executor so far.
+    ``mapper_factory``.
+
+    ``executor="streaming"`` runs :class:`~repro_torch.core.StreamingExecutor`
+    (source prefetch and write-behind); ``executor="pool"`` runs
+    :func:`~repro_torch.core.run_pool` with ``n_workers`` threads, which the
+    caller must name.  The multi-GPU ``"spmd"`` executor is not ported yet
+    (ROADMAP A.14).
 
     The run goes through the plan layer: ``plan_cache`` defaults to the
     process-wide registry (:func:`~repro_torch.core.global_plan_cache`);
@@ -212,8 +220,12 @@ def run_pipeline(
 
     Returns ``(StreamResult, mapper)``.
     """
-    if executor != "streaming":
-        raise ValueError(f"unknown executor {executor!r} (only 'streaming' is ported)")
+    if executor == "spmd":
+        raise NotImplementedError("the multi-GPU 'spmd' executor is not ported yet (ROADMAP A.14)")
+    if executor not in ("streaming", "pool"):
+        raise ValueError(f"unknown executor {executor!r}")
+    if executor == "pool" and n_workers is None:
+        raise ValueError("executor='pool' needs n_workers=")
     dev = resolve_device(device)
     sources = tuple(
         as_source(s, device=dev) if isinstance(s, (str, os.PathLike, np.ndarray)) else s
@@ -237,6 +249,10 @@ def run_pipeline(
                 f"source {src.name!r} lives on {src.device}, but the run is on {dev}"
             )
     cache = plan_cache if plan_cache is not None else global_plan_cache()
-    res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,
-                            use_jit=use_jit).run(keep_outputs=keep_outputs)
+    if executor == "pool":
+        res = run_pool(pipeline, mapper, splitter, n_workers=n_workers, plan_cache=cache,
+                       use_jit=use_jit, keep_outputs=keep_outputs)
+    else:
+        res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,
+                                use_jit=use_jit).run(keep_outputs=keep_outputs)
     return res, mapper

@@ -6,8 +6,9 @@
   * :class:`RasterSink` rides on top of :class:`~repro_torch.core.Mapper`:
     ``write_region`` / ``write_many`` mirror the source surface.
 
-Counterpart of ``repro.raster.protocol``.  Overviews and read-ahead come
-with the tiled container (ROADMAP A.12).
+Counterpart of ``repro.raster.protocol``.  Overviews come with the tiled
+container (ROADMAP A.12), and so does the first source with something to
+read ahead.
 """
 from __future__ import annotations
 
@@ -56,6 +57,13 @@ class RasterSource:
             return [self.read_region(r) for r in regions]
         with ThreadPoolExecutor(max_workers=n_readers) as pool:
             return list(pool.map(self.read_region, regions))
+
+    def read_ahead(self, regions: Iterable[ImageRegion]) -> int:
+        """Hint: these windows will be read soon.  Returns how many fetches
+        were scheduled (0 for sources with nothing to prefetch, the
+        default).  The streaming executor hands its region schedule here
+        before the region loop."""
+        return 0
 
 
 class RasterSink:

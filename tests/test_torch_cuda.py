@@ -4,10 +4,13 @@ checks, and the small pipelines and reduced served models on ``cuda``
 against the CPU path.
 
 These need a GPU and ``nvcc`` (a CUDA kernel has no CPU mode) and skip
-elsewhere.  On a GPU host:
+elsewhere.  The executors' cases (prefetch, the re-jit baseline, the pool,
+a capture while other threads read) are at the end.  On a GPU host:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -17,7 +20,7 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch import filters as TF  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    PlanCache, Pipeline, StripeSplitter, TileSplitter, global_plan_cache,
+    PlanCache, Pipeline, StripeSplitter, TileSplitter, execute, global_plan_cache, run_pool,
 )
 from repro_torch.kernels import LAUNCHERS  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
@@ -28,7 +31,7 @@ from repro_torch.kernels import pansharpen as T_ps  # noqa: E402
 from repro_torch.kernels import prestage  # noqa: E402
 from repro_torch.kernels import ssd_scan as T_ssd  # noqa: E402
 from repro_torch.models import lm as T_lm  # noqa: E402
-from repro_torch.raster import ArraySource, MemoryMapper  # noqa: E402
+from repro_torch.raster import ArraySource, MemoryMapper, SyntheticScene  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -639,3 +642,140 @@ def test_repeated_runs_hold_device_memory_flat(cuda):
         held.append(torch.cuda.memory_reserved(cuda))
     assert max(held[2:]) <= held[1], held
     assert entries == [0] * 12, entries
+
+
+# --------------------------------------------------------------------------
+# the executors on the card: prefetch, the re-jit baseline and the pool
+# --------------------------------------------------------------------------
+EXECUTORS = {
+    "prefetch 2": lambda p, m, split, cache: execute(p, m, split, prefetch=2, plan_cache=cache),
+    "cache=False": lambda p, m, split, cache: execute(p, m, split, cache=False),
+    "pool 4": lambda p, m, split, cache: run_pool(p, m, split, n_workers=4, plan_cache=cache),
+    "pool 2, static": lambda p, m, split, cache: run_pool(p, m, split, n_workers=2,
+                                                          scheduler="static", plan_cache=cache),
+}
+
+
+@pytest.mark.parametrize("mode", list(EXECUTORS))
+@pytest.mark.parametrize("name", ["P2", "P3", "P5"])
+def test_executors_on_cuda_equal_the_serial_run(cuda, name, mode):
+    """Each executor's output equals the serial (``prefetch=0``) run of the
+    same built pipeline bit for bit; the captured ones count the serial
+    run's compiles, and the re-jit baseline holds no memory after it."""
+    p, m = _graphs_on(name, cuda)
+    split = StripeSplitter(5)
+    serial_cache, cache = PlanCache(), PlanCache()
+    execute(p, m, split, prefetch=0, plan_cache=serial_cache)
+    serial = m.result.copy()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda)
+    res = EXECUTORS[mode](p, m, split, cache)
+    torch.cuda.synchronize()
+    assert np.array_equal(m.result, serial)
+    if mode == "cache=False":
+        assert res.cache_stats is None and len(cache) == 0
+        assert torch.cuda.memory_allocated(cuda) == held
+    else:
+        assert cache.stats_snapshot() == serial_cache.stats_snapshot()
+        assert all(e.captured for e in cache.entries())
+
+
+@pytest.mark.parametrize("splitter", [StripeSplitter(8), TileSplitter(13, 17)])
+def test_pool_captures_once_per_signature_across_four_workers(cuda, splitter):
+    p, m = _graphs_on("P2", cuda)
+    cache = PlanCache()
+    res = run_pool(p, m, splitter, n_workers=4, plan_cache=cache)
+    pc, mc = _graphs_on("P2", "cpu")
+    cpu_cache = PlanCache()
+    execute(pc, mc, splitter, prefetch=0, plan_cache=cpu_cache)
+    entries = cache.entries()
+    assert len(entries) == cache.stats.compiles == cpu_cache.stats.compiles
+    assert cache.stats_snapshot() == cpu_cache.stats_snapshot()
+    assert all(e.captured for e in entries)
+    assert res.regions_processed == len(splitter.split(p.info(m).full_region, p.info(m)))
+    assert np.array_equal(m.result, TP.run_pipeline((p, m), splitter=splitter, device=cuda,
+                                                    use_jit=False)[1].result)
+
+
+def test_capture_while_three_threads_read(cuda):
+    """Three threads read sources (synthesis kernels, copies, allocations)
+    without a pause while the main thread captures fresh entries: the
+    device's gate holds the reads off each capture, every capture succeeds,
+    and every read and output equals its serial value."""
+    p, m = TP.p5_meanshift(SyntheticScene(96, 64, bands=4, seed=3, device=cuda), hs=2, n_iter=2)
+    info = p.info(m)
+    mode = p.virtual_describe_mode()
+    descs = [p.describe_pull(m, r, virtual=mode) for r in StripeSplitter(4).split(
+        info.full_region, info)]
+    want_reads = [d.read_sources() for d in descs]
+    want_out = p.pull(m, descs[1].out_region)
+    start = threading.Barrier(4, timeout=60)
+    stop = threading.Event()
+    reads, errors = [0, 0, 0], []
+
+    def reader(k):
+        try:
+            start.wait()
+            while not stop.is_set():
+                i = (k + reads[k]) % len(descs)
+                got = descs[i].read_sources()
+                if not all(torch.equal(a, b) for a, b in zip(got, want_reads[i])):
+                    raise AssertionError(f"reader {k}: read {i} differs")
+                reads[k] += 1
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader, args=(k,)) for k in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        start.wait()
+        for _ in range(4):
+            cache = PlanCache()  # a fresh entry: every call here is a capture
+            d = descs[1]
+            entry = cache.compiled_for(d, lambda: p.lower_pull(d))
+            out, _ = entry(d.read_sources(), {}, d.origins())
+            assert entry.captured and cache.stats.compiles == 1
+            assert torch.equal(out, want_out)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert all(n > 0 for n in reads), reads
+
+
+def test_repeated_pool_runs_hold_device_memory_flat(cuda):
+    xs = RNG.integers(1, 4096, (64, 48, 4)).astype(np.uint16)
+    pan = RNG.integers(1, 4096, (256, 192, 1)).astype(np.uint16)
+    held, entries = [], []
+    for _ in range(12):
+        TP.run_pipeline("P3", ArraySource(xs, device=cuda), ArraySource(pan, device=cuda),
+                        executor="pool", n_workers=4, splitter=StripeSplitter(8), device=cuda)
+        entries.append(len(global_plan_cache()))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held.append(torch.cuda.memory_reserved(cuda))
+    assert max(held[2:]) <= held[1], held
+    assert entries == [0] * 12, entries
+
+
+def test_a_synchronizing_filter_still_fails_its_capture(cuda):
+    """The capture gate does not hide a filter that synchronizes with the
+    host: its capture still fails, naming the plan.  (Last in the file: a
+    failed capture is the one case here that leaves the device mid-error.)"""
+    class Syncs(TF.Convert):
+        def pointwise_ops(self):
+            return None
+
+        def generate(self, out_region, x):
+            if float(x.max().item()) < 0:  # reads a device value on the host
+                raise AssertionError
+            return super().generate(out_region, x)
+
+    p = Pipeline()
+    s = p.add(ArraySource(RNG.integers(1, 4096, (32, 24, 1)).astype(np.uint16), device=cuda))
+    m = p.add(MemoryMapper(), [p.add(Syncs(np.uint8, in_range=(0.0, 4096.0)), [s])])
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        execute(p, m, StripeSplitter(4), plan_cache=PlanCache())
