@@ -70,14 +70,30 @@
    compile per signature whatever the executor), the memory held after
    each run (flat), and one profiled run (idle share, launches against the
    device trace);
-9. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+9. the stage DAG (``dag`` lines): ``chain_stages`` (pansharpen with B1 ->
+   texture with B2 -> classify) at the same product tile, 2 workers and 8
+   stripes a stage, through ``Orchestrator`` in barrier mode and pipelined
+   at capacity 2, then pipelined once more under ``torch.profiler``; each
+   run on a fresh ``PlanCache`` and a workdir removed after it (~2.7 GB of
+   stage files).  Each stage's file must equal barrier mode's bit for bit
+   (SHA-256), every stage must capture what barrier mode captures (entries
+   per stage), B1 and B2 must launch and no other kernel, the profiled
+   run's counts must equal the device trace's, and the pipelined run's
+   stage outputs are held against the CPU pull (corner and interior
+   windows; the texture and classify stages over the card-written upstream
+   file).  Each line: walls per stage and in total, per edge
+   ``max_in_flight``, ``overdrafts``, ``commits`` and ``waits``.  Then
+   ROADMAP C.3's small DAG, pipelined at capacity 1 and 20 times under a
+   1 us switch interval and a watchdog, each run equal to its barrier run;
+10. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Every ``run_pipeline`` call goes through the plan layer (a CUDA-graph
 capture per signature, replayed per stripe) unless it says
-``use_jit=False``.  Each pipeline of steps 3, 6, 7 and 8 ends with a run under
-``torch.profiler`` whose launch counts (set to 0 just before it) must equal
-each kernel's launches in the device trace: a replay launches the captured
-kernels without their wrappers, which the plan layer stands in for.  Step 3
+``use_jit=False``.  Each pipeline of steps 3, 6, 7 and 8, and step 9's
+chain, ends with a run under ``torch.profiler`` whose launch counts (set to
+0 just before it) must equal each kernel's launches in the device trace: a
+replay launches the captured kernels without their wrappers, which the
+plan layer stands in for.  Step 3
 builds most pipelines afresh per run into the process-wide plan cache; all
 hold no more device memory after the third run than after the second.  The
 cache is reset and the caching allocator emptied once, before serving.
@@ -96,11 +112,14 @@ TF32 tensor cores, split three ways to keep float32's precision).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -116,9 +135,11 @@ from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     AutoSplitter,
     ImageRegion,
+    Orchestrator,
     PersistentFilter,
     Pipeline,
     PlanCache,
+    Stage,
     StripeSplitter,
     VMEMTileSplitter,
     execute,
@@ -129,12 +150,15 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.splitting import H100_L2_BYTES  # noqa: E402
 from repro_torch.filters import (  # noqa: E402
+    BandMath,
     BandStatistics,
+    Concat,
     Convert,
     HaralickTextures,
     MeanShift,
     PansharpenFuse,
     Resample,
+    SobelGradient,
 )
 from repro_torch.kernels import LAUNCHERS, _build, ops, prestage  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
@@ -146,10 +170,12 @@ from repro_torch.models import lm as TL  # noqa: E402
 from repro_torch.raster import (  # noqa: E402
     ArraySource,
     MemoryMapper,
+    ParallelRasterWriter,
     RasterReader,
     SyntheticScene,
     make_spot6_pair,
 )
+from repro_torch.raster import io as rio  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 #: H100 SXM data-sheet peaks (at the full 700 W power limit)
@@ -1030,6 +1056,229 @@ def executor_runs(xs, pan) -> dict:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# the stage DAG: pansharpen (B1) -> texture (B2) -> classify, barrier and
+# pipelined
+# ---------------------------------------------------------------------------
+DAG_KW = dict(rows_xs=XS_SIDE, cols_xs=XS_SIDE, n_workers=2, n_splits=N_STRIPES)
+DAG_CAPACITY = 2
+#: each chain stage's TOL key against the CPU pull (B2: CUDA's logf is not
+#: the CPU's, as in the P2 check; the forest: equal)
+DAG_TOL = {"pansharpen": "pansharpen", "texture": "glcm_features", "classify": "P4"}
+DAG_KERNELS = {"pansharpen", "glcm_features"}
+C3_RUNS = 20
+WEDGE_S = 300.0  # a DAG run still going after this long has wedged
+
+
+def kept_stages(stages) -> tuple:
+    """The stages, each ``build`` wrapped to keep its (pipeline, mapper)
+    alive after the run: a plan cache drops a collected pipeline's
+    entries, and the entries are counted per stage (by the writer's name
+    in the entry's) after the run."""
+    kept = {}
+
+    def wrap(stage):
+        def build(inputs, out):
+            kept[stage.name] = stage.build(inputs, out)
+            return kept[stage.name]
+        return dataclasses.replace(stage, build=build)
+
+    return [wrap(s) for s in stages], kept
+
+
+def watchdogged(orch: Orchestrator, timeout: float = WEDGE_S) -> dict:
+    """``orch.run()`` on a helper thread; a run still going after
+    ``timeout`` is cancelled and fails the phase."""
+    box = {}
+
+    def target():
+        try:
+            box["res"] = orch.run()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    t = threading.Thread(target=target, name="dag-run", daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        orch.cancel()
+        t.join(60)
+        raise AssertionError(f"the {'pipelined' if orch.pipelined else 'barrier'} DAG run "
+                             f"wedged (> {timeout} s); edges: {orch.edge_stats}")
+    if "error" in box:
+        raise box["error"]
+    return box["res"]
+
+
+def file_digest(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 26):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def rtif_view(path: str) -> np.ndarray:
+    """An RTIF file's pixels as a read-only memory map."""
+    info = rio.read_info(path)
+    return np.memmap(path, dtype=info.dtype, mode="r", offset=rio.HEADER_BYTES,
+                     shape=(info.rows, info.cols, info.bands))
+
+
+def dag_run(label: str, stages, pipelined: bool, capacity: int, kernels=(), traced=False,
+            inspect=None, timeout: float = WEDGE_S) -> dict:
+    """One orchestrator run of ``stages`` on a fresh ``PlanCache`` and a
+    workdir of its own, removed after it, with the launch counts set to 0
+    just before and read just after (``traced``: under ``torch.profiler``,
+    the counts held against the device trace).  Every stage's plans must
+    be captured; ``kernels`` must launch, no other hand kernel may.
+    ``inspect(results)`` runs while the stage files exist.  Returns the
+    walls, counters per stage and edge and each stage file's digest."""
+    stages, kept = kept_stages(stages)
+    cache = PlanCache()
+    with Orchestrator(stages, plan_cache=cache, pipelined=pipelined,
+                      queue_capacity=capacity) as orch:
+        if traced:
+            t0 = time.perf_counter()
+            results, counts, profiled = traced_run(f"dag {label}",
+                                                   lambda: watchdogged(orch, timeout))
+            wall = time.perf_counter() - t0
+        else:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            results = watchdogged(orch, timeout)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, profiled = launches(), None
+        launched = {k for k, n in counts.items() if n}
+        if launched != set(kernels):
+            raise AssertionError(f"dag {label}: launches {counts}, expected {sorted(kernels)}")
+        entries = cache.entries()
+        if not (entries and all(e.captured for e in entries)):
+            raise AssertionError(f"dag {label}: a plan ran without its CUDA graph")
+        per_stage = {name: sum(e.name.startswith(f"{m.name}@") for e in entries)
+                     for name, (p, m) in kept.items()}
+        if sum(per_stage.values()) != cache.stats.compiles:
+            raise AssertionError(f"dag {label}: {per_stage} entries, "
+                                 f"{cache.stats.compiles} compiles")
+        rec = dict(mode=label, pipelined=pipelined, queue_capacity=capacity, wall_s=wall,
+                   stage_s={n: r.seconds for n, r in results.items()},
+                   regions={n: r.regions for n, r in results.items()},
+                   compiles_per_stage=per_stage, counters=cache.stats_snapshot(),
+                   launches={k: n for k, n in counts.items() if n},
+                   edges={f"{a}->{b}": dataclasses.asdict(st)
+                          for (a, b), st in orch.edge_stats.items()},
+                   digests={n: file_digest(r.path) for n, r in results.items()},
+                   file_bytes={n: Path(r.path).stat().st_size for n, r in results.items()})
+        if profiled is not None:
+            rec.update(idle_share=profiled["idle_share"], device_busy_ms=profiled["device_busy_ms"],
+                       profiled_wall_ms=profiled["wall_ms"],
+                       traced_launches={k: n for k, n in profiled["traced_launches"].items() if n},
+                       top=profiled["top"])
+        if inspect is not None:
+            rec.update(inspect(results))
+    del kept, entries, cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dag_regions(results, xs_np, pan_np) -> dict:
+    """Corner and interior windows of each chain stage's card output
+    against the port's CPU pull of that stage over the card-written
+    upstream file (the pansharpen stage over host copies of the card's
+    source pixels)."""
+    cpu = lambda a: ArraySource(a, device="cpu")  # noqa: E731
+    out = {}
+    for stage in TP.chain_stages(**DAG_KW, device="cpu"):
+        if stage.name == "pansharpen":
+            pair = TP.p3_pansharpening(cpu(xs_np), cpu(pan_np))
+        else:  # the build's writer is never begun: the check only pulls
+            pair = stage.build({i: results[i].path for i in stage.inputs},
+                               results[stage.name].path + ".cpu")
+        out[stage.name] = check_regions(DAG_TOL[stage.name],
+                                        rtif_view(results[stage.name].path), pair)
+    return {"windows_vs_cpu": out}
+
+
+def c3_stages(dev):
+    """ROADMAP C.3's DAG (where the reference's pipelined run can wedge):
+    s0 (1 worker, 3 strips) -> {s1 = Sobel of s0 (2, 3), s2 of s0 and s1
+    (2, 5)}, each stage ending in a two-band projection and a writer."""
+    img = np.random.default_rng(7).uniform(0, 255, (24, 16, 2)).astype(np.float32)
+    two = lambda a: torch.cat([a, a], dim=-1)[..., :2]  # noqa: E731
+
+    def stage(name, inputs, mids, n_workers, n_splits):
+        def build(paths, out):
+            p = Pipeline()
+            if inputs:
+                ins = [p.add(RasterReader(paths[i], device=dev)) for i in inputs]
+                x = ins[0] if len(ins) == 1 else p.add(Concat(len(ins)), ins)
+            else:
+                x = p.add(ArraySource(img, device=dev))
+            for f in mids():
+                x = p.add(f, [x])
+            x = p.add(BandMath(two, out_bands=2), [x])
+            return p, p.add(ParallelRasterWriter(out), [x])
+        return Stage(name, build, inputs=inputs, n_workers=n_workers,
+                     splitter=StripeSplitter(n_splits=n_splits))
+
+    return [stage("s0", (), lambda: [], 1, 3),
+            stage("s1", ("s0",), lambda: [SobelGradient()], 2, 3),
+            stage("s2", ("s0", "s1"), lambda: [], 2, 5)]
+
+
+def dag_runs(xs_np, pan_np) -> dict:
+    """The chain at the full product tile in barrier mode and pipelined at
+    capacity 2 (then once more pipelined under ``torch.profiler``), each
+    stage's file equal to barrier mode's bit for bit and compiling what
+    barrier mode compiles; the pipelined run's stage outputs held against
+    the CPU pull; then C.3's DAG pipelined at capacity 1, ``C3_RUNS`` times
+    under a 1 us switch interval, each equal to its barrier run."""
+    chain = lambda: TP.chain_stages(**DAG_KW, device="cuda")  # noqa: E731
+    barrier = dag_run("barrier", chain(), False, DAG_CAPACITY, DAG_KERNELS)
+    runs = {"barrier": barrier}
+    runs["pipelined"] = dag_run("pipelined", chain(), True, DAG_CAPACITY, DAG_KERNELS,
+                                inspect=lambda res: dag_regions(res, xs_np, pan_np))
+    runs["pipelined, profiled"] = dag_run("pipelined, profiled", chain(), True, DAG_CAPACITY,
+                                          DAG_KERNELS, traced=True)
+    for label, rec in runs.items():
+        if rec["digests"] != barrier["digests"]:
+            raise AssertionError(f"dag {label}: stage files differ from barrier mode's: "
+                                 f"{rec['digests']} != {barrier['digests']}")
+        if rec["compiles_per_stage"] != barrier["compiles_per_stage"]:
+            raise AssertionError(f"dag {label}: compiles per stage {rec['compiles_per_stage']}, "
+                                 f"barrier mode {barrier['compiles_per_stage']}")
+        if rec["launches"] != barrier["launches"]:
+            raise AssertionError(f"dag {label}: launches {rec['launches']}, barrier mode "
+                                 f"{barrier['launches']}")
+        rec["equals_barrier"] = True
+        print(json.dumps({"dag": label, **rec}), flush=True)
+
+    want = dag_run("C.3 barrier", c3_stages("cuda"), False, 1)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    walls, edges = [], []
+    try:
+        for k in range(C3_RUNS):
+            rec = dag_run(f"C.3 pipelined {k}", c3_stages("cuda"), True, 1, timeout=60.0)
+            if rec["digests"] != want["digests"] or rec["compiles_per_stage"] != want[
+                    "compiles_per_stage"]:
+                raise AssertionError(f"C.3 run {k}: {rec} differs from barrier mode's {want}")
+            walls.append(rec["wall_s"])
+            edges.append(rec["edges"])
+    finally:
+        sys.setswitchinterval(old)
+    c3 = dict(runs=C3_RUNS, wedges=0, equal_to_barrier=C3_RUNS, switch_interval_s=1e-6,
+              queue_capacity=1, wall_s=walls, compiles_per_stage=want["compiles_per_stage"],
+              overdrafts=[{e: st["overdrafts"] for e, st in run.items()} for run in edges],
+              max_in_flight=[{e: st["max_in_flight"] for e, st in run.items()} for run in edges])
+    print(json.dumps({"dag": "C.3", **c3}), flush=True)
+    runs["C.3"] = c3
+    return runs
+
+
 def kernel_line(rows, launch_counts) -> tuple:
     """The ``kernels`` JSON entries (B1-B5) and the checks behind them."""
     kernels, checks = [], {}
@@ -1376,6 +1625,7 @@ def main(argv: list) -> int:
     plan_runs(xs, pan)
     _, fused_checks = fused_runs(xs, pan)
     executor_runs(xs, pan)
+    dag_runs(xs_np, pan_np)
     del xs, pan
     release_plans()
 

@@ -3,8 +3,8 @@
 The mapper chooses how the output image is divided into regions: striped or
 tiled with fixed dimensions, or automatically from a memory budget and the
 number of workers.  Every splitter must tile the domain *exactly* (cover
-every pixel once).  Counterpart of ``repro.core.splitting``; ``RowCoverage``
-and the padded-grid helpers come with the DAG and the multi-GPU grid.
+every pixel once).  Counterpart of ``repro.core.splitting``; the
+padded-grid helpers come with the multi-GPU grid.
 """
 from __future__ import annotations
 
@@ -18,6 +18,59 @@ from repro_torch.core.region import ImageRegion
 class Splitter:
     def split(self, region: ImageRegion, info: ImageInfo) -> List[ImageRegion]:
         raise NotImplementedError
+
+
+class RowCoverage:
+    """A monotone set of committed row intervals (half-open ``[lo, hi)``).
+
+    The stage DAG (:mod:`repro_torch.core.dag`) tracks which output rows a
+    producer stage has committed to disk; consumers derive readiness from
+    it.  Commits may arrive out of order (several producer workers,
+    coalesced write runs), so coverage is a sorted list of disjoint
+    intervals that merges neighbours on insert.  Not thread-safe: callers
+    (the edge queues) hold their own lock."""
+
+    def __init__(self) -> None:
+        self._ivals: List[List[int]] = []  # sorted, disjoint, non-adjacent
+
+    def add(self, lo: int, hi: int) -> None:
+        """Mark rows ``[lo, hi)`` covered (idempotent, merges neighbours)."""
+        if hi <= lo:
+            return
+        out: List[List[int]] = []
+        inserted = False
+        for a, b in self._ivals:
+            if b < lo or hi < a:  # disjoint and not adjacent: keep as is
+                if a > hi and not inserted:
+                    out.append([lo, hi])
+                    inserted = True
+                out.append([a, b])
+            else:  # overlapping or touching: absorb into the new interval
+                lo, hi = min(lo, a), max(hi, b)
+        if not inserted:
+            out.append([lo, hi])
+            out.sort()
+        self._ivals = out
+
+    def covers(self, lo: int, hi: int) -> bool:
+        """True when every row of ``[lo, hi)`` is covered."""
+        if hi <= lo:
+            return True
+        for a, b in self._ivals:
+            if a <= lo and hi <= b:
+                return True
+            if a > lo:
+                break
+        return False
+
+    def covered_rows(self) -> int:
+        return sum(b - a for a, b in self._ivals)
+
+    def intervals(self) -> List[tuple]:
+        return [(a, b) for a, b in self._ivals]
+
+    def __repr__(self) -> str:
+        return f"RowCoverage({self._ivals})"
 
 
 def clamped_tile_spans(lo: int, hi: int, step: int) -> List[tuple[int, int]]:

@@ -1,7 +1,9 @@
 """The paper's seven benchmark pipelines P1–P7 (§III.B), the NDVI
 time-series composite P9 over explicit scenes, and the pure I/O pipeline as
-ready-made graphs, and :func:`run_pipeline`, which streams any of them.
-P8 and P9's catalog-driven scene series wait for the scene catalogs.
+ready-made graphs; :func:`run_pipeline`, which streams any of them; and
+:func:`chain_stages`, the pansharpen → texture → classify stage DAG for the
+:class:`~repro_torch.core.Orchestrator`.  P8 and P9's catalog-driven scene
+series wait for the scene catalogs.
 
 Each builder returns ``(pipeline, mapper)`` terminated by the given mapper
 factory (defaults to an in-memory mapper; pass a ParallelRasterWriter factory
@@ -21,7 +23,9 @@ from repro_torch.core import (
     Mapper,
     Pipeline,
     Source,
+    Stage,
     StreamingExecutor,
+    StripeSplitter,
     global_plan_cache,
     resolve_device,
     run_pool,
@@ -39,7 +43,15 @@ from repro_torch.filters import (
     ndvi,
     train_forest,
 )
-from repro_torch.raster import MemoryMapper, as_sink, as_source
+from repro_torch.filters.texture import FEATURES
+from repro_torch.raster import (
+    MemoryMapper,
+    ParallelRasterWriter,
+    RasterReader,
+    as_sink,
+    as_source,
+    make_spot6_pair,
+)
 
 
 def _mapper(factory: Optional[Callable[[], Mapper]]) -> Mapper:
@@ -166,6 +178,73 @@ def io_passthrough(src: Source, mapper_factory=None) -> Tuple[Pipeline, Mapper]:
     s = p.add(src)
     m = p.add(_mapper(mapper_factory), [s])
     return p, m
+
+
+def chain_stages(
+    rows_xs: int = 48,
+    cols_xs: int = 32,
+    seed: int = 0,
+    n_workers: int = 2,
+    n_splits: Optional[int] = None,
+    texture_radius: int = 2,
+    levels: int = 8,
+    n_classes: int = 4,
+    device=None,
+):
+    """The stage list of the chain pansharpen (P3, B1) → texture (P2, B2) →
+    classify (the forest), for ``Orchestrator(chain_stages(...),
+    pipelined=True)``; barrier mode runs it the same.
+
+      * every stage's ``build`` is **geometry-only**: in pipelined mode a
+        consumer builds as soon as the upstream RTIF header exists, before
+        any upstream pixels do, so the forest is trained here, once, on
+        seeded synthetic texture-feature vectors (never on upstream pixels,
+        unlike :func:`p4_classification`);
+      * every stage ends in a commit-capable
+        :class:`~repro_torch.raster.ParallelRasterWriter` and splits its
+        output into full-width strips.
+
+    The stages run on ``device`` (``cuda`` unless the caller names another;
+    the pansharpen stage synthesizes its XS/PAN pair there, the others read
+    the upstream files onto it)."""
+    dev = resolve_device(device)
+    # a pre-trained model (the paper's classification pipeline also loads a
+    # trained model rather than fitting in line)
+    rng = np.random.default_rng(seed + 11)
+    X = rng.normal(0.0, 1.0, size=(1024, len(FEATURES))).astype(np.float32)
+    mix = X @ np.linspace(1.0, 2.0, len(FEATURES))
+    edges = np.quantile(mix, np.linspace(0, 1, n_classes + 1)[1:-1])
+    y = np.digitize(mix, edges).astype(np.int64)
+    forest = train_forest(X, y, n_trees=8, max_depth=6, seed=seed)
+    mean, std = X.mean(0), X.std(0) + 1e-6
+
+    splitter = StripeSplitter(n_splits=n_splits) if n_splits else None
+
+    def build_pansharpen(_inputs, out):
+        xs, pan = make_spot6_pair(rows_xs, cols_xs, seed=seed, device=dev)
+        return p3_pansharpening(xs, pan, mapper_factory=lambda: ParallelRasterWriter(out))
+
+    def build_texture(inputs, out):
+        return p2_textures(
+            RasterReader(inputs["pansharpen"], device=dev),
+            mapper_factory=lambda: ParallelRasterWriter(out),
+            radius=texture_radius, levels=levels,
+        )
+
+    def build_classify(inputs, out):
+        p = Pipeline()
+        s = p.add(RasterReader(inputs["texture"], device=dev))
+        f = p.add(RandomForestClassify(forest, mean=mean, std=std), [s])
+        m = p.add(ParallelRasterWriter(out), [f])
+        return p, m
+
+    return [
+        Stage("pansharpen", build_pansharpen, n_workers=n_workers, splitter=splitter),
+        Stage("texture", build_texture, inputs=("pansharpen",), n_workers=n_workers,
+              splitter=splitter),
+        Stage("classify", build_classify, inputs=("texture",), n_workers=n_workers,
+              splitter=splitter),
+    ]
 
 
 ALL = {

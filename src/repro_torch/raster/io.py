@@ -7,15 +7,14 @@ range is known in advance, any number of writers can write disjoint strips
 of the same file concurrently (the single-host MPI-IO file view).
 
 Byte-compatible with ``repro.raster.io``: a file written by either package
-reads back bit-identically in the other.  The commit hook of the DAG
-scheduler comes with the DAG.
+reads back bit-identically in the other.
 """
 from __future__ import annotations
 
 import json
 import os
 import threading
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -91,13 +90,28 @@ class StripWriter:
     **Coalescing**: consecutive row-contiguous full-width strips are batched
     into one ``pwrite``, flushed when a non-adjacent region arrives, when
     buffered bytes reach ``coalesce_bytes``, on :meth:`flush` and on
-    :meth:`close`.  ``coalesce_bytes=0`` writes every strip through."""
+    :meth:`close`.  ``coalesce_bytes=0`` writes every strip through.
 
-    def __init__(self, path: str, info: ImageInfo, coalesce_bytes: int = 8 << 20):
+    **Commit notification**: ``on_commit(row0, row1)`` fires once the bytes
+    of full-width rows ``[row0, row1)`` are in the file (after their
+    ``pwrite``), not when :meth:`write` merely buffers them into a
+    coalescing run: once per flushed run, once per strip written through.
+    This is the commit protocol of the stage DAG
+    (:mod:`repro_torch.core.dag`): a downstream stage may read those rows
+    the moment the hook fires.  Tile writes never fire it."""
+
+    def __init__(
+        self,
+        path: str,
+        info: ImageInfo,
+        coalesce_bytes: int = 8 << 20,
+        on_commit: Optional[Callable[[int, int], None]] = None,
+    ):
         create(path, info)
         self.path = path
         self.info = info
         self.coalesce_bytes = int(coalesce_bytes)
+        self.on_commit = on_commit
         self._fd: Optional[int] = os.open(path, os.O_RDWR)
         self._lock = threading.Lock()  # guards the pending run
         self._run: List[np.ndarray] = []  # contiguous full-width strips
@@ -115,10 +129,13 @@ class StripWriter:
         if not self._run:
             return
         buf = self._run[0] if len(self._run) == 1 else np.concatenate(self._run)
-        offset = HEADER_BYTES + self._run_row0 * self.info.cols * self.info.bytes_per_pixel
+        row0, rows = self._run_row0, self._run_rows
+        offset = HEADER_BYTES + row0 * self.info.cols * self.info.bytes_per_pixel
         self._run = []
         self._run_rows = self._run_bytes = 0
         self._pwrite_all(memoryview(buf).cast("B"), offset)
+        if self.on_commit is not None:
+            self.on_commit(row0, row0 + rows)  # the whole run is in the file now
 
     def flush(self) -> None:
         """Force any coalesced pending strips onto disk."""
@@ -149,6 +166,8 @@ class StripWriter:
                             memoryview(data).cast("B"),
                             HEADER_BYTES + region.row0 * info.cols * bpp,
                         )
+                        if self.on_commit is not None:
+                            self.on_commit(region.row0, region.row1)
                         return
                     self._run_row0 = region.row0
                 # the run defers the pwrite past this call, so never hold a

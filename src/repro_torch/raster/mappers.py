@@ -2,8 +2,7 @@
 
 Mappers take host (numpy) pixels and cast them to ``ImageInfo.dtype``, so a
 ``uint16`` product carried as ``int32`` on the device lands as ``uint16``.
-Counterpart of ``repro.raster.mappers``; the DAG commit sink comes with the
-DAG.
+Counterpart of ``repro.raster.mappers``.
 """
 from __future__ import annotations
 
@@ -41,7 +40,14 @@ class MemoryMapper(Mapper, RasterSink):
 class ParallelRasterWriter(Mapper, RasterSink):
     """The paper's parallel GeoTiff writer (§II.D): every worker writes its
     strips directly into their final in-file position (pwrite on disjoint
-    byte ranges of one shared descriptor)."""
+    byte ranges of one shared descriptor).
+
+    In a pipelined stage DAG the writer is the producer end of an edge:
+    :meth:`bind_commit_sink` attaches a sink
+    (:class:`~repro_torch.core.dag.EdgeFanout`) whose ``offer`` applies
+    flow control before each strip is written and whose ``commit`` fires
+    from the :class:`~repro_torch.raster.io.StripWriter` hook once the
+    strip's bytes are in the file."""
 
     thread_safe = True
 
@@ -52,11 +58,25 @@ class ParallelRasterWriter(Mapper, RasterSink):
         super().__init__(name or f"write:{path}")
         self.path = path
         self._writer: Optional[rio.StripWriter] = None
+        self._sink = None
+
+    def bind_commit_sink(self, sink) -> None:
+        """Attach a commit sink (``opened``, ``set_flush``, ``offer``,
+        ``commit``) before the run starts."""
+        self._sink = sink
 
     def begin(self, info: ImageInfo) -> None:
-        self._writer = rio.StripWriter(self.path, info)
+        self._writer = rio.StripWriter(
+            self.path, info,
+            on_commit=self._sink.commit if self._sink is not None else None,
+        )
+        if self._sink is not None:
+            self._sink.set_flush(self._writer.flush)
+            self._sink.opened(info)
 
     def consume(self, out_region: ImageRegion, data: np.ndarray) -> None:
+        if self._sink is not None:
+            self._sink.offer(out_region)  # backpressure before the write
         self._writer.write(out_region, np.asarray(data))
 
     def end(self) -> None:

@@ -5,11 +5,16 @@ against the CPU path.
 
 These need a GPU and ``nvcc`` (a CUDA kernel has no CPU mode) and skip
 elsewhere.  The executors' cases (prefetch, the re-jit baseline, the pool,
-a capture while other threads read) are at the end.  On a GPU host:
+a capture while other threads read) and the stage DAG's (the chain
+pipelined against barrier mode, a capture while another stage waits on
+its rows, ROADMAP C.3's DAG) are at the end.  On a GPU host:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -20,7 +25,8 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch import filters as TF  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    PlanCache, Pipeline, StripeSplitter, TileSplitter, execute, global_plan_cache, run_pool,
+    Orchestrator, PlanCache, Pipeline, Stage, StripeSplitter, TileSplitter, execute,
+    global_plan_cache, run_pool,
 )
 from repro_torch.kernels import LAUNCHERS  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
@@ -31,7 +37,10 @@ from repro_torch.kernels import pansharpen as T_ps  # noqa: E402
 from repro_torch.kernels import prestage  # noqa: E402
 from repro_torch.kernels import ssd_scan as T_ssd  # noqa: E402
 from repro_torch.models import lm as T_lm  # noqa: E402
-from repro_torch.raster import ArraySource, MemoryMapper, SyntheticScene  # noqa: E402
+from repro_torch.raster import (  # noqa: E402
+    ArraySource, MemoryMapper, ParallelRasterWriter, RasterReader, SyntheticScene,
+)
+from repro_torch.raster import io as rio  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -759,6 +768,174 @@ def test_repeated_pool_runs_hold_device_memory_flat(cuda):
         held.append(torch.cuda.memory_reserved(cuda))
     assert max(held[2:]) <= held[1], held
     assert entries == [0] * 12, entries
+
+
+# --------------------------------------------------------------------------
+# the stage DAG on the card: pipelined against barrier mode
+# --------------------------------------------------------------------------
+def _kept(stages):
+    """The stages, each ``build`` wrapped to keep its (pipeline, mapper)
+    alive after the run: a plan cache drops the entries of a collected
+    pipeline, and the entries are counted per stage afterwards."""
+    kept = {}
+
+    def wrap(stage):
+        def build(inputs, out):
+            kept[stage.name] = stage.build(inputs, out)
+            return kept[stage.name]
+        return dataclasses.replace(stage, build=build)
+
+    return [wrap(s) for s in stages], kept
+
+
+def _run_dag(stages, pipelined, capacity=2, timeout=120.0, captured=True):
+    """One orchestrator run on a fresh plan cache, under a watchdog: each
+    stage's output, its entries by stage (all captured on the card) and the
+    edges' counters."""
+    stages, kept = _kept(stages)
+    cache = PlanCache()
+    with Orchestrator(stages, plan_cache=cache, pipelined=pipelined,
+                      queue_capacity=capacity) as orch:
+        box = {}
+        t = threading.Thread(target=lambda: box.update(res=orch.run()), daemon=True)
+        t.start()
+        t.join(timeout)
+        if t.is_alive():
+            orch.cancel()
+            t.join(10)
+            pytest.fail(f"orchestrator run wedged (>{timeout}s)")
+        assert "res" in box, "the run raised"
+        outs = {k: rio.read_region(v.path) for k, v in box["res"].items()}
+        per_stage = {name: sum(e.name.startswith(f"{m.name}@") for e in cache.entries())
+                     for name, (p, m) in kept.items()}
+        assert all(e.captured == captured for e in cache.entries())
+        assert sum(per_stage.values()) == cache.stats.compiles == len(cache.entries())
+        return outs, per_stage, dict(orch.edge_stats)
+
+
+@pytest.mark.parametrize("capacity", [1, 2])
+def test_chain_pipelined_equals_barrier_on_cuda(cuda, capacity):
+    """pansharpen (B1) → texture (B2) → classify on the card: every stage's
+    pipelined output equals barrier mode's bit for bit, each stage captures
+    once per signature (barrier mode's counts), and every edge commits and
+    releases."""
+    make = lambda: TP.chain_stages(64, 48, n_workers=2, n_splits=8, device=cuda)  # noqa: E731
+    barrier, want_counts, _ = _run_dag(make(), False)
+    launches = {k: f.launches for k, f in LAUNCHERS.items()}
+    pipelined, counts, stats = _run_dag(make(), True, capacity)
+    for name, want in barrier.items():
+        assert np.array_equal(pipelined[name], want), name
+    assert counts == want_counts
+    assert all(s.commits > 0 and s.releases > 0 for s in stats.values())
+    assert LAUNCHERS["pansharpen"].launches > launches["pansharpen"]
+    assert LAUNCHERS["glcm_features"].launches > launches["glcm_features"]
+
+
+def test_chain_captures_once_per_signature_per_stage(cuda):
+    """Three stage threads, one card, one plan cache: each stage captures
+    once per signature, as the CPU's barrier run compiles per stage."""
+    _, counts, _ = _run_dag(TP.chain_stages(64, 48, n_workers=2, n_splits=8, device=cuda), True)
+    _, cpu_counts, _ = _run_dag(TP.chain_stages(64, 48, n_workers=2, n_splits=8,
+                                                device="cpu"), False, captured=False)
+    assert counts == cpu_counts
+    assert all(n >= 1 for n in counts.values())
+
+
+class _WaitForConsumer(TF.Convert):
+    """Identity whose first ``generate`` (the warm-up inside its plan's
+    capture, with the device's gate held alone) waits until the consumer's
+    worker is blocked on this stage's rows."""
+
+    def __init__(self, box):
+        super().__init__(np.float32)
+        self.box = box
+
+    def pointwise_ops(self):
+        return None
+
+    def generate(self, out_region, x):
+        if not self.box.get("seen"):
+            self.box["seen"] = True
+            deadline = time.monotonic() + 30.0
+            while self.box["orch"].edge_stats[("B", "C")].waits == 0:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the consumer never waited on the producer's rows")
+                time.sleep(0.001)
+            self.box["consumer_waited"] = True
+        return x
+
+
+def test_a_stage_captures_while_a_consumer_waits_on_its_rows(cuda):
+    """Stage B's first capture holds the device's gate alone while stage
+    C's worker is blocked on B's rows: nothing in the wait holds the gate,
+    so the capture completes and C goes on."""
+    img = RNG.uniform(0, 4096, (64, 48, 2)).astype(np.float32)
+    box = {}
+
+    def build_b(_inputs, out):
+        p = Pipeline()
+        f = p.add(_WaitForConsumer(box), [p.add(ArraySource(img, device=cuda))])
+        return p, p.add(ParallelRasterWriter(out), [f])
+
+    def build_c(inputs, out):
+        p = Pipeline()
+        r = p.add(RasterReader(inputs["B"], device=cuda))
+        return p, p.add(ParallelRasterWriter(out), [p.add(TF.SobelGradient(), [r])])
+
+    stages = [Stage("B", build_b, n_workers=1, splitter=StripeSplitter(4)),
+              Stage("C", build_c, inputs=("B",), n_workers=2, splitter=StripeSplitter(4))]
+    cache = PlanCache()
+    with Orchestrator(stages, plan_cache=cache, pipelined=True, queue_capacity=1) as orch:
+        box["orch"] = orch
+        res = orch.run()
+        got = rio.read_region(res["C"].path)
+    assert box.get("consumer_waited")
+    assert all(e.captured for e in cache.entries())
+    p = Pipeline()
+    e = p.add(TF.SobelGradient(), [p.add(ArraySource(img, device=cuda))])
+    m = p.add(MemoryMapper(), [e])
+    assert np.array_equal(got, p.pull(m, p.info(m).full_region).cpu().numpy())
+
+
+def _c3_stages(dev):
+    img = np.random.default_rng(7).uniform(0, 255, (24, 16, 2)).astype(np.float32)
+    two = lambda a: torch.cat([a, a], dim=-1)[..., :2]  # noqa: E731
+
+    def stage(name, inputs, mids, n_workers, n_splits):
+        def build(paths, out):
+            p = Pipeline()
+            if inputs:
+                ins = [p.add(RasterReader(paths[i], device=dev)) for i in inputs]
+                x = ins[0] if len(ins) == 1 else p.add(TF.Concat(len(ins)), ins)
+            else:
+                x = p.add(ArraySource(img, device=dev))
+            for f in mids():
+                x = p.add(f, [x])
+            x = p.add(TF.BandMath(two, out_bands=2), [x])
+            return p, p.add(ParallelRasterWriter(out), [x])
+        return Stage(name, build, inputs=inputs, n_workers=n_workers,
+                     splitter=StripeSplitter(n_splits))
+
+    return [stage("s0", (), lambda: [], 1, 3),
+            stage("s1", ("s0",), lambda: [TF.SobelGradient()], 2, 3),
+            stage("s2", ("s0", "s1"), lambda: [], 2, 5)]
+
+
+def test_c3_dag_never_wedges_on_cuda(cuda):
+    """ROADMAP C.3's DAG at capacity 1, repeated under a 1 us switch
+    interval: every run completes, equal to barrier mode bit for bit and
+    with its captures per stage."""
+    barrier, want_counts, _ = _run_dag(_c3_stages(cuda), False)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(5):
+            got, counts, _ = _run_dag(_c3_stages(cuda), True, capacity=1, timeout=60.0)
+            assert counts == want_counts
+            for name, want in barrier.items():
+                assert np.array_equal(got[name], want), name
+    finally:
+        sys.setswitchinterval(old)
 
 
 def test_a_synchronizing_filter_still_fails_its_capture(cuda):
