@@ -85,7 +85,24 @@
    ``max_in_flight``, ``overdrafts``, ``commits`` and ``waits``.  Then
    ROADMAP C.3's small DAG, pipelined at capacity 1 and 20 times under a
    1 us switch interval and a watchdog, each run equal to its barrier run;
-10. prints the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+10. tiled pyramidal IO and scene catalogs (``tiled`` lines): XS and PAN
+   written to RTIC (256 x 256 tiles, 4 and 6 levels); P3 through
+   ``run_pipeline`` from the two files into a third (B1 9 times; level 0
+   equal bit for bit to step 3's P3, level 1 its ``[::2, ::2]``); P2 over
+   PAN's stored level 1 (4096^2, B2), equal bit for bit to P2 over
+   ``DecimatedSource(pan, 2)``; P8 over a ``SceneCatalog`` of the demo
+   mosaic's four 2560^2 x 4 scenes written to RTIC, into an RTIC sink (a
+   4096^2 x 4 float32 canvas); P9 over a catalog of three XS-sized date
+   files.  Each cell's built pipeline streams twice (the second run under
+   ``torch.profiler``) and once through ``run_pool`` with 2 workers (equal
+   output, no new compile, memory held flat), with corner and interior
+   windows against the CPU pull, the containers' stats (tile hits and
+   misses, read-ahead, range requests and bytes) and one interior stripe's
+   tile assembly and host-to-device copy; the files (~1.9 GB) are removed
+   after the phase;
+11. prints the ``kernels`` JSON line (B1's and B2's launches counted over
+    step 3's and the tiled phase's runs), the card line, and last the
+    ``ok`` line.
 
 Every ``run_pipeline`` call goes through the plan layer (a CUDA-graph
 capture per signature, replayed per stripe) unless it says
@@ -167,12 +184,19 @@ from repro_torch.kernels import meanshift as ms_k  # noqa: E402
 from repro_torch.kernels import pansharpen as ps_k  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
+from repro_torch.core.process_object import to_tensor  # noqa: E402
 from repro_torch.raster import (  # noqa: E402
     ArraySource,
+    DecimatedSource,
     MemoryMapper,
     ParallelRasterWriter,
     RasterReader,
+    SceneCatalog,
+    SceneEntry,
     SyntheticScene,
+    TiledSource,
+    TileWriter,
+    demo_catalog,
     make_spot6_pair,
 )
 from repro_torch.raster import io as rio  # noqa: E402
@@ -204,6 +228,7 @@ TOL = {  # the reference's own tolerances (tests/test_kernels.py)
     "P7": dict(rtol=1e-4, atol=1e-3),
     "P4": dict(rtol=0, atol=0),
     "P6": dict(rtol=0, atol=0),
+    "P8": dict(rtol=0, atol=0),
     "P9": dict(rtol=0, atol=0),
     "STATS": dict(rtol=0, atol=0),
 }
@@ -413,7 +438,8 @@ def run_p3(xs, pan, xs_np, pan_np, tmp: Path) -> dict:
     cpu = TP.p3_pansharpening(ArraySource(xs_np, device="cpu"), ArraySource(pan_np, device="cpu"))
     return dict(wall_s=walls, pixels=res.pixels_processed, launches=counts,
                 finite_share=float(np.isfinite(got).mean()), profile=profiled, held_bytes=held,
-                regions=check_regions("pansharpen", got, cpu))
+                regions=check_regions("pansharpen", got, cpu),
+                pixels_sha256=hashlib.sha256(got).hexdigest())
 
 
 def run_memory(name: str, kernel: str, src, src_np, **kw) -> dict:
@@ -1279,15 +1305,291 @@ def dag_runs(xs_np, pan_np) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# tiled pyramidal IO and scene catalogs: P3 and P2 from and into RTIC files,
+# P8 and P9 over catalogs of tiled scenes
+# ---------------------------------------------------------------------------
+TILE = 256  # the products' internal tiles: 1 MB of a P3 output tile
+P8_SIDE = 2 * XS_SIDE  # the demo mosaic's canvas: four 2560^2 scenes on 4096^2
+#: the tiled cells whose runs launch a hand kernel, and which
+TILED_KERNELS = {"P3": "pansharpen", "P2": "glcm_features", "P8": None, "P9": None}
+
+
+def write_rtic(path: Path, info, array: np.ndarray) -> dict:
+    """``array`` through a TileWriter (``TILE`` tiles, the default levels)
+    in ``N_STRIPES`` full-width strips: the file's size and the wall."""
+    t0 = time.perf_counter()
+    w = TileWriter(str(path), TILE)
+    w.begin(info)
+    for r in StripeSplitter(n_splits=N_STRIPES).split(info.full_region, info):
+        w.consume(r, array[r.slices()])
+    w.end()
+    wall = time.perf_counter() - t0
+    back = TiledSource(str(path), device="cuda")
+    try:
+        return dict(bytes=path.stat().st_size, write_s=wall, levels=back._c.n_levels)
+    finally:
+        back.close()
+
+
+def output_of(mapper) -> np.ndarray:
+    """The run's output: a TileWriter's level 0 read back, or the array."""
+    if isinstance(mapper, TileWriter):
+        back = TiledSource(mapper.path, device="cuda")
+        try:
+            return back.read_region()
+        finally:
+            back.close()
+    return mapper.result
+
+
+def assembly_stages(path: Path, level: int, region: ImageRegion) -> dict:
+    """One interior stripe's read of ``path`` at ``level`` on a fresh
+    container: tile assembly on the host, cold (every tile a range read)
+    and warm (every tile cached; median of 5, host clock), and the widen +
+    host-to-device copy that ``generate`` adds (CUDA events, median of 5)."""
+    src = TiledSource(str(path), level=level, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        arr = src._c.read_region(level, region)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            src._c.read_region(level, region)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        return dict(stripe=str(region), bytes=arr.nbytes, assembly_cold_ms=cold_ms,
+                    assembly_warm_ms=float(np.median(warm)),
+                    h2d_ms=cuda_ms(lambda: to_tensor(arr, src.device), reps=5),
+                    stats=src.stats())
+    finally:
+        src.close()
+
+
+def tiled_cell(name: str, pair, cpu_pair, sources, written: dict, extra: dict,
+               want_sha256=None) -> tuple:
+    """One built pair over opened TiledSources, on a plan cache of its own:
+    :func:`timed_runs` of the streamed run (the first captures; the traced
+    run's launch counts must be the cell's kernel alone; the sources'
+    read-ahead fires), then one run through ``run_pool`` with 2 workers,
+    which must compile nothing new, equal the streamed output bit for bit
+    and leave the device memory held where the streamed runs did.  Corner
+    and interior windows against the port's CPU pull of ``cpu_pair``; the
+    containers' stats.  ``want_sha256``: the digest the output's pixels
+    must have.  Returns the line and the output."""
+    p, m = pair
+    cache = PlanCache()
+    split = lambda: StripeSplitter(n_splits=N_STRIPES)  # noqa: E731
+    kernel = TILED_KERNELS[name]
+    walls, res, counts, profiled, held = timed_runs(f"tiled {name}", lambda: TP.run_pipeline(
+        (p, m), splitter=split(), device="cuda", plan_cache=cache)[0])
+    launched = {k for k, n in counts.items() if n}
+    if launched != ({kernel} if kernel else set()):
+        raise AssertionError(f"tiled {name}: launches {counts}, expected {kernel}")
+    got = output_of(m)
+    if want_sha256 is not None and hashlib.sha256(got).hexdigest() != want_sha256:
+        raise AssertionError(f"tiled {name}: the streamed output differs from step 3's")
+    compiles = cache.stats.compiles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TP.run_pipeline((p, m), executor="pool", n_workers=2, splitter=split(), device="cuda",
+                    plan_cache=cache)
+    torch.cuda.synchronize()
+    pool_wall = time.perf_counter() - t0
+    held.append(held_bytes())
+    if cache.stats.compiles != compiles:
+        raise AssertionError(f"tiled {name}: {cache.stats.compiles - compiles} new compiles "
+                             "over the same geometry")
+    if not np.array_equal(output_of(m), got):
+        raise AssertionError(f"tiled {name}: the pool's output differs from the streamed run's")
+    if held[3] > held[1]:
+        raise AssertionError(f"tiled {name}: device memory held grew: {held}")
+    if not all(e.captured for e in cache.entries()):
+        raise AssertionError(f"tiled {name}: a plan ran without its CUDA graph")
+    stats = {s.name: s.stats() for s in sources}
+    # the executor hands its schedule to the pipeline's sources; a mosaic's
+    # scenes sit behind the MosaicSource, which forwards no hint
+    direct = {s.name for s in p.sources()}
+    if not all(st["readahead_scheduled"] > 0 for n, st in stats.items() if n in direct):
+        raise AssertionError(f"tiled {name}: a source scheduled no read-ahead: {stats}")
+    rec = dict(cell=name, pixels=res.pixels_processed, shape=list(got.shape),
+               dtype=str(got.dtype), finite_share=float(np.isfinite(got).mean()),
+               wall_s={"streamed": walls, "pool 2": pool_wall},
+               profiled_wall_s=profiled["wall_ms"] / 1e3,
+               idle_share=profiled["idle_share"], device_busy_ms=profiled["device_busy_ms"],
+               host_launch_calls=profiled["host_launch_calls"],
+               launches={k: n for k, n in counts.items() if n},
+               counters=cache.stats_snapshot(), pool_new_compiles=0, pool_equals_streamed=True,
+               held_bytes=held, source_stats=stats, written=written,
+               regions=check_regions(name if kernel is None else kernel, got, cpu_pair),
+               **extra)
+    return rec, got
+
+
+def tiled_runs(xs, pan, xs_np, pan_np, p3_sha256: str) -> dict:
+    """The ``tiled`` phase.  XS and PAN are written to RTIC (``TILE``
+    tiles, levels by default: 4 and 6); P3 streams from the two files into
+    a third through ``run_pipeline`` with paths (B1 9 times; level 0 equal
+    to step 3's P3 bit for bit, level 1 its ``[::2, ::2]``); P2 streams over
+    PAN's stored level 1 (B2), equal bit for bit to P2 over
+    ``DecimatedSource(pan, 2)``; P8 over a catalog of the demo mosaic's four
+    scenes written to RTIC, into an RTIC sink; P9 over a catalog of three
+    date files.  Each cell is a :func:`tiled_cell`; the files are removed
+    after the phase."""
+    split = lambda: StripeSplitter(n_splits=N_STRIPES)  # noqa: E731
+    cpu = lambda a: ArraySource(a, device="cpu")  # noqa: E731
+    lines = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiled_") as tmpdir:
+        tmp = Path(tmpdir)
+        xs_path, pan_path = tmp / "xs.rtic", tmp / "pan.rtic"
+        written = {"xs.rtic": write_rtic(xs_path, xs.output_info(), xs_np),
+                   "pan.rtic": write_rtic(pan_path, pan.output_info(), pan_np)}
+
+        # P3: paths in, a path out, as a user calls it
+        out = tmp / "p3.rtic"
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res, _ = TP.run_pipeline("P3", str(xs_path), str(pan_path), sink=str(out),
+                                 splitter=split(), device="cuda")
+        torch.cuda.synchronize()
+        path_wall = time.perf_counter() - t0
+        path_counts = launches()
+        if path_counts != {**{k: 0 for k in path_counts}, "pansharpen": N_STRIPES + 1}:
+            raise AssertionError(f"tiled P3: launches {path_counts}, expected B1 "
+                                 f"{N_STRIPES + 1} times")
+        back = TiledSource(str(out), device="cuda")
+        try:
+            level0 = back.read_region()
+            if hashlib.sha256(level0).hexdigest() != p3_sha256:
+                raise AssertionError("tiled P3: level 0 differs from step 3's P3 output")
+            if not np.array_equal(back.overview(1).read_region(), level0[::2, ::2]):
+                raise AssertionError("tiled P3: level 1 is not level 0's [::2, ::2]")
+            out_levels = back._c.n_levels
+        finally:
+            back.close()
+        del level0
+        written["p3.rtic"] = dict(bytes=out.stat().st_size, levels=out_levels)
+        txs = TiledSource(str(xs_path), name="xs.rtic", device="cuda")
+        tpan = TiledSource(str(pan_path), name="pan.rtic", device="cuda")
+        try:
+            rec, _ = tiled_cell(
+                "P3", TP.p3_pansharpening(txs, tpan, mapper_factory=lambda: TileWriter(
+                    str(tmp / "p3b.rtic"), TILE)),
+                TP.p3_pansharpening(cpu(xs_np), cpu(pan_np)), (txs, tpan), written,
+                dict(path_run=dict(wall_s=path_wall, pixels=res.pixels_processed,
+                                   launches={k: n for k, n in path_counts.items() if n},
+                                   level0_equals_step3=True, level1_equals_level0_stride2=True)),
+                want_sha256=p3_sha256)
+            region = split().split(pan.output_info().full_region, pan.output_info())[1]
+            rec["stages"] = {"pan": assembly_stages(pan_path, 0, region)}
+        finally:
+            txs.close()
+            tpan.close()
+        lines["P3"] = rec
+        print(json.dumps({"tiled": "P3", **rec}), flush=True)
+        (tmp / "p3b.rtic").unlink()
+        out.unlink()
+
+        # P2 over PAN's stored level 1 against on-the-fly decimation
+        base = TiledSource(str(pan_path), name="pan.rtic", device="cuda")
+        try:
+            level1 = base.overview(1)
+            if not isinstance(level1, TiledSource):
+                raise AssertionError("PAN's level 1 is not stored")
+            rec, got = tiled_cell("P2", TP.p2_textures(level1),
+                                     TP.p2_textures(cpu(pan_np[::2, ::2])), (level1,),
+                                     {}, {})
+            _, dm = TP.run_pipeline("P2", DecimatedSource(pan, 2), splitter=split(),
+                                    device="cuda")
+            if not np.array_equal(got, dm.result):
+                raise AssertionError("tiled P2: stored level 1 differs from DecimatedSource")
+            rec["equals_decimated_source"] = True
+            info1 = level1.output_info()
+            rec["stages"] = {"pan level 1": assembly_stages(
+                pan_path, 1, split().split(info1.full_region, info1)[1])}
+        finally:
+            base.close()
+        lines["P2"] = rec
+        print(json.dumps({"tiled": "P2", **rec}), flush=True)
+        del got, dm
+
+        # P8: the demo mosaic's scenes written to RTIC, read back as a catalog
+        demo = demo_catalog(P8_SIDE, P8_SIDE, n_scenes=4, device="cuda")
+        arrays, entries, scene_files = [], [], {}
+        for e in demo.entries:
+            a = e.source.read_region()
+            path = tmp / f"{e.source.name}.rtic"
+            scene_files[path.name] = write_rtic(path, e.source.output_info(), a)
+            arrays.append(a)
+            entries.append(SceneEntry(TiledSource(str(path), name=path.name, device="cuda"),
+                                      e.placement, e.time))
+        try:
+            cat = SceneCatalog(entries, rows=P8_SIDE, cols=P8_SIDE)
+            cpu_cat = SceneCatalog([SceneEntry(cpu(a), e.placement, e.time)
+                                    for a, e in zip(arrays, entries)], rows=P8_SIDE,
+                                   cols=P8_SIDE)
+            rec, _ = tiled_cell(
+                "P8", TP.p8_mosaic(cat, mapper_factory=lambda: TileWriter(
+                    str(tmp / "p8.rtic"), TILE), device="cuda"),
+                TP.p8_mosaic(cpu_cat, device="cpu"), [e.source for e in entries], scene_files,
+                {})
+            rec["sink_bytes"] = (tmp / "p8.rtic").stat().st_size
+            info = cat.entries[0].source.output_info()
+            rec["stages"] = {"scene0": assembly_stages(
+                tmp / "scene0.rtic", 0, split().split(info.full_region, info)[1])}
+        finally:
+            for e in entries:
+                e.source.close()
+        lines["P8"] = rec
+        print(json.dumps({"tiled": "P8", **rec}), flush=True)
+        del arrays, demo
+
+        # P9: three date files as a catalog
+        dates, date_files, entries = [], {}, []
+        for k in P9_SEEDS:
+            s = SyntheticScene(XS_SIDE, XS_SIDE, bands=4, seed=k, device="cuda")
+            a = s.read_region()
+            path = tmp / f"date{k}.rtic"
+            date_files[path.name] = write_rtic(path, s.output_info(), a)
+            dates.append(a)
+            entries.append(SceneEntry(TiledSource(str(path), name=path.name, device="cuda"),
+                                      s.output_info().full_region, time=k))
+        try:
+            cat = SceneCatalog(entries)
+            cpu_cat = SceneCatalog([SceneEntry(cpu(a), e.placement, e.time)
+                                    for a, e in zip(dates, entries)])
+            rec, _ = tiled_cell("P9", TP.p9_ndvi_composite(cat),
+                                   TP.p9_ndvi_composite(cpu_cat), [e.source for e in entries],
+                                   date_files, {})
+            info = cat.entries[0].source.output_info()
+            rec["stages"] = {"date0": assembly_stages(
+                tmp / "date0.rtic", 0, split().split(info.full_region, info)[1])}
+        finally:
+            for e in entries:
+                e.source.close()
+        lines["P9"] = rec
+        print(json.dumps({"tiled": "P9", **rec}), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return lines
+
+
+#: the main-path cells whose launches each kernel's row adds up, where
+#: more than the cell it was timed on: B1 and B2 also run in the tiled phase
+ROW_CELLS = {"pansharpen": ("P3", "tiled P3"), "glcm_features": ("P2", "tiled P2")}
+
+
 def kernel_line(rows, launch_counts) -> tuple:
     """The ``kernels`` JSON entries (B1-B5) and the checks behind them."""
     kernels, checks = [], {}
     for name, cell, where, chk, ms, plain_ms, bnd, lib_ms in rows:
         meta = KERNELS[name]
+        by_cell = {c: launch_counts[c][name] for c in ROW_CELLS.get(name, (cell,))}
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "cell": cell,
-            "launches": launch_counts[cell][name],
+            "launches": sum(by_cell.values()), "launches_by_cell": by_cell,
             "max_abs_err": chk["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             **bnd, "library_ms": lib_ms,
         })
@@ -1626,6 +1928,9 @@ def main(argv: list) -> int:
     _, fused_checks = fused_runs(xs, pan)
     executor_runs(xs, pan)
     dag_runs(xs_np, pan_np)
+    tiled = tiled_runs(xs, pan, xs_np, pan_np, runs["P3"]["pixels_sha256"])
+    runs["tiled P3"] = dict(launches=tiled["P3"]["path_run"]["launches"])
+    runs["tiled P2"] = dict(launches=tiled["P2"]["launches"])
     del xs, pan
     release_plans()
 
@@ -1641,14 +1946,16 @@ def main(argv: list) -> int:
                                  f"{record['kernel']} once per layer ({n_layers}) and no other")
     rows += lm_kernel_rows(captured)
 
-    launch_counts = {name: r["launches"] for name, r in runs.items()}
+    launch_counts = {name: {k: r["launches"].get(k, 0) for k in KERNELS}
+                     for name, r in runs.items()}
     if {row[0] for row in rows} != set(KERNELS):
         raise AssertionError(f"kernel rows {sorted({row[0] for row in rows})} != {sorted(KERNELS)}")
     for name, cell, *_ in rows:
-        n = launch_counts[cell][name]
-        if n <= 0:
-            raise AssertionError(f"{name}: kernel not launched on the {cell} main path")
-        print(f"{name}: {n} launches in {cell}", flush=True)
+        for c in ROW_CELLS.get(name, (cell,)):
+            n = launch_counts[c][name]
+            if n <= 0:
+                raise AssertionError(f"{name}: kernel not launched on the {c} main path")
+            print(f"{name}: {n} launches in {c}", flush=True)
     kernels, checks = kernel_line(rows, launch_counts)
     checks.update(fused_checks)
     print(json.dumps({"kernel_checks": checks}), flush=True)

@@ -249,9 +249,11 @@ class Source(ProcessObject):
 
     def read_record(self):
         """Extra static data stamped into this source's plan-signature read
-        records (the source-side analogue of :meth:`plan_key`; tiled
-        containers will stamp their tile geometry).  None for every source
-        the port has so far."""
+        records (the source-side analogue of :meth:`plan_key`).  A tiled
+        container returns its tile geometry and overview level, so a
+        re-tiled or re-leveled container never aliases a flat source's
+        plan; plain sources return None.  Hashable and deterministic: the
+        describe and lower walks both record it."""
         return None
 
 

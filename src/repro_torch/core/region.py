@@ -132,7 +132,7 @@ def tile_cover(
     of grid cell ``(ty, tx)`` — clipped to ``bounds`` when given (ragged
     right/bottom tiles of an image that is not a tile-size multiple), *not*
     intersected with ``region``.  This is the region↔tile algebra shared by
-    the tiled container (ported with the tiled IO): a windowed read visits
+    the tiled container (:mod:`repro_torch.raster.tiled`): a windowed read visits
     exactly these cells, a writer flushes a cell once its pixels are covered.
     """
     if region.is_empty():

@@ -1,9 +1,9 @@
-"""The paper's seven benchmark pipelines P1–P7 (§III.B), the NDVI
-time-series composite P9 over explicit scenes, and the pure I/O pipeline as
-ready-made graphs; :func:`run_pipeline`, which streams any of them; and
-:func:`chain_stages`, the pansharpen → texture → classify stage DAG for the
-:class:`~repro_torch.core.Orchestrator`.  P8 and P9's catalog-driven scene
-series wait for the scene catalogs.
+"""The paper's seven benchmark pipelines P1–P7 (§III.B), the
+catalog-driven multi-scene pipelines P8 (mosaic) and P9 (NDVI time-series
+composite), and the pure I/O pipeline as ready-made graphs;
+:func:`run_pipeline`, which streams any of them; and :func:`chain_stages`,
+the pansharpen → texture → classify stage DAG for the
+:class:`~repro_torch.core.Orchestrator`.
 
 Each builder returns ``(pipeline, mapper)`` terminated by the given mapper
 factory (defaults to an in-memory mapper; pass a ParallelRasterWriter factory
@@ -13,6 +13,7 @@ pipeline runs on the device of its sources.  Counterpart of
 """
 from __future__ import annotations
 
+import inspect
 import os
 from typing import Callable, Optional, Tuple
 
@@ -46,10 +47,14 @@ from repro_torch.filters import (
 from repro_torch.filters.texture import FEATURES
 from repro_torch.raster import (
     MemoryMapper,
+    MosaicSource,
     ParallelRasterWriter,
     RasterReader,
+    SceneCatalog,
     as_sink,
     as_source,
+    demo_catalog,
+    demo_time_series,
     make_spot6_pair,
 )
 
@@ -149,22 +154,59 @@ def p7_resampling(src: Source, factor: int = 4, mapper_factory=None) -> Tuple[Pi
     return p, m
 
 
+def p8_mosaic(
+    catalog=None,
+    rows: int = 48,
+    cols: int = 32,
+    n_scenes: int = 4,
+    seed: int = 0,
+    mapper_factory=None,
+    device=None,
+) -> Tuple[Pipeline, Mapper]:
+    """P8: catalog-driven mosaic: a :class:`~repro_torch.raster.SceneCatalog`
+    assembled by :class:`~repro_torch.raster.MosaicSource` (later scenes win
+    overlaps), rescaled to reflectance.  ``catalog`` may be a SceneCatalog,
+    a ready MosaicSource, or a list of SceneEntry; the default is the
+    overlapping-quadrant demo catalog, synthesized on ``device`` (``cuda``
+    unless the caller names another)."""
+    if catalog is None:
+        catalog = demo_catalog(rows, cols, n_scenes=n_scenes, seed=seed, device=device)
+    if isinstance(catalog, MosaicSource):
+        src = catalog
+    else:
+        if not isinstance(catalog, SceneCatalog):
+            catalog = SceneCatalog(list(catalog))
+        src = MosaicSource(catalog)
+    p = Pipeline()
+    s = p.add(src)
+    f = p.add(Convert(np.float32, in_range=(0.0, 4096.0), out_range=(0.0, 1.0)), [s])
+    m = p.add(_mapper(mapper_factory), [f])
+    return p, m
+
+
 def p9_ndvi_composite(
     *scenes: Source,
+    periods: int = 3,
+    rows: int = 48,
+    cols: int = 32,
+    seed: int = 0,
     op: str = "max",
     red_band: int = 0,
     nir_band: int = 3,
     mapper_factory=None,
+    device=None,
 ) -> Tuple[Pipeline, Mapper]:
-    """P9: NDVI time-series composite — per-date NDVI, reduced elementwise
+    """P9: NDVI time-series composite: per-date NDVI, reduced elementwise
     across dates (max-NDVI composite by default).  Pass the scenes as
-    sources; a scene catalog, or no scene (the reference's demo series),
-    waits for the catalogs (ROADMAP A.12)."""
-    if not scenes or not all(isinstance(s, Source) for s in scenes):
-        raise NotImplementedError(
-            "P9 takes its scenes as sources; scene catalogs and the demo "
-            "series are not ported yet (ROADMAP A.12)"
-        )
+    sources, as one :class:`~repro_torch.raster.SceneCatalog` (composited in
+    acquisition order), or nothing for the synthetic ``periods``-date demo
+    series, synthesized on ``device`` (``cuda`` unless the caller names
+    another)."""
+    if len(scenes) == 1 and isinstance(scenes[0], SceneCatalog):
+        scenes = tuple(e.source for e in scenes[0].by_time())
+    if not scenes:
+        cat = demo_time_series(rows, cols, periods=periods, seed=seed, device=device)
+        scenes = tuple(e.source for e in cat.by_time())
     p = Pipeline()
     heads = [p.add(ndvi(red_band, nir_band), [p.add(s)]) for s in scenes]
     comp = p.add(Composite(len(heads), op=op), heads)
@@ -255,6 +297,7 @@ ALL = {
     "P5": p5_meanshift,
     "P6": p6_conversion,
     "P7": p7_resampling,
+    "P8": p8_mosaic,
     "P9": p9_ndvi_composite,
     "IO": io_passthrough,
 }
@@ -280,10 +323,15 @@ def run_pipeline(
     already-built ``(pipeline, mapper)`` pair.  ``device`` defaults to
     ``cuda`` and raises when no GPU is present; pass ``device="cpu"`` for the
     plain PyTorch path.  Each positional source may be a
-    :class:`~repro_torch.core.Source` (which must live on ``device``), an
-    RTIF path or an ndarray (opened on ``device``); ``sink=`` accepts a
-    :class:`~repro_torch.core.Mapper` or a path and replaces
-    ``mapper_factory``.
+    :class:`~repro_torch.core.Source` (which must live on ``device``), a
+    file path (its container magic picks RTIF or the tiled RTIC) or an
+    ndarray, both opened on ``device`` and closed after the run, or a
+    builder-specific argument such as a
+    :class:`~repro_torch.raster.SceneCatalog`, which passes through.
+    ``sink=`` accepts a :class:`~repro_torch.core.Mapper` or a path
+    (``.rtic`` writes the tiled container, anything else the flat
+    strip-parallel RTIF) and replaces ``mapper_factory``.  A builder that
+    makes its own scenes (P8, P9 without scenes) makes them on ``device``.
 
     ``executor="streaming"`` runs :class:`~repro_torch.core.StreamingExecutor`
     (source prefetch and write-behind); ``executor="pool"`` runs
@@ -306,32 +354,42 @@ def run_pipeline(
     if executor == "pool" and n_workers is None:
         raise ValueError("executor='pool' needs n_workers=")
     dev = resolve_device(device)
-    sources = tuple(
-        as_source(s, device=dev) if isinstance(s, (str, os.PathLike, np.ndarray)) else s
-        for s in sources
-    )
-    if sink is not None:
-        if mapper_factory is not None:
-            raise ValueError("pass sink= or mapper_factory=, not both")
-        if isinstance(name, tuple):
-            raise ValueError("a prebuilt (pipeline, mapper) pair already carries its sink")
-        mapper_factory = lambda: as_sink(sink)  # noqa: E731
+    opened = {}  # position -> the source this run opened from a path or array
+    try:
+        for i, s in enumerate(sources):
+            if isinstance(s, (str, os.PathLike, np.ndarray)):
+                opened[i] = as_source(s, device=dev)
+        sources = tuple(opened.get(i, s) for i, s in enumerate(sources))
+        if sink is not None:
+            if mapper_factory is not None:
+                raise ValueError("pass sink= or mapper_factory=, not both")
+            if isinstance(name, tuple):
+                raise ValueError("a prebuilt (pipeline, mapper) pair already carries its sink")
+            mapper_factory = lambda: as_sink(sink)  # noqa: E731
 
-    if isinstance(name, tuple):
-        pipeline, mapper = name
-    else:
-        build = ALL[name] if isinstance(name, str) else name
-        pipeline, mapper = build(*sources, mapper_factory=mapper_factory, **builder_kw)
-    for src in pipeline.sources():
-        if src.device != dev:
-            raise ValueError(
-                f"source {src.name!r} lives on {src.device}, but the run is on {dev}"
-            )
-    cache = plan_cache if plan_cache is not None else global_plan_cache()
-    if executor == "pool":
-        res = run_pool(pipeline, mapper, splitter, n_workers=n_workers, plan_cache=cache,
-                       use_jit=use_jit, keep_outputs=keep_outputs)
-    else:
-        res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,
-                                use_jit=use_jit).run(keep_outputs=keep_outputs)
+        if isinstance(name, tuple):
+            pipeline, mapper = name
+        else:
+            build = ALL[name] if isinstance(name, str) else name
+            if "device" in inspect.signature(build).parameters:
+                builder_kw.setdefault("device", dev)
+            pipeline, mapper = build(*sources, mapper_factory=mapper_factory, **builder_kw)
+        for src in pipeline.sources():
+            if src.device != dev:
+                raise ValueError(
+                    f"source {src.name!r} lives on {src.device}, but the run is on {dev}"
+                )
+        cache = plan_cache if plan_cache is not None else global_plan_cache()
+        if executor == "pool":
+            res = run_pool(pipeline, mapper, splitter, n_workers=n_workers, plan_cache=cache,
+                           use_jit=use_jit, keep_outputs=keep_outputs)
+        else:
+            res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,
+                                    use_jit=use_jit).run(keep_outputs=keep_outputs)
+    finally:
+        # what the run opened from a path, it closes (a tiled source's
+        # read-ahead thread with it)
+        for src in opened.values():
+            if callable(getattr(src, "close", None)):
+                src.close()
     return res, mapper

@@ -7,14 +7,18 @@ range is known in advance, any number of writers can write disjoint strips
 of the same file concurrently (the single-host MPI-IO file view).
 
 Byte-compatible with ``repro.raster.io``: a file written by either package
-reads back bit-identically in the other.
+reads back bit-identically in the other.  ``read_region`` stays a plain
+function here (``RasterReader`` reads through it); the ``parallel_read`` /
+``parallel_write`` pair survives as the reference's deprecated wrappers
+around the Source/Sink protocol.
 """
 from __future__ import annotations
 
 import json
 import os
 import threading
-from typing import Callable, List, Optional
+import warnings
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,8 +26,6 @@ from repro_torch.core.process_object import GeoTransform, ImageInfo
 from repro_torch.core.region import ImageRegion
 
 MAGIC = b"RTIF0001"
-#: the tiled pyramidal container's magic (reading it is not ported yet)
-TILED_MAGIC = b"RTIC0001"
 HEADER_BYTES = 4096  # fixed-size header → strip offsets computable a priori
 
 
@@ -76,6 +78,27 @@ def create(path: str, info: ImageInfo) -> None:
     with open(path, "wb") as f:
         f.write(head)
         f.truncate(total)
+
+
+def write_strip(path: str, info: ImageInfo, region: ImageRegion, data: np.ndarray) -> None:
+    """Write one full-width strip into its in-file position: safe across
+    concurrent writers of disjoint strips (the MPI-IO analogue)."""
+    if region.col0 != 0 or region.cols != info.cols:
+        raise ValueError("row-interleaved layout: strips must span full width")
+    data = np.ascontiguousarray(data, dtype=info.dtype).reshape(
+        region.rows, region.cols, info.bands
+    )
+    offset = HEADER_BYTES + region.row0 * info.cols * info.bytes_per_pixel
+    mm = np.memmap(
+        path,
+        dtype=info.dtype,
+        mode="r+",
+        offset=offset,
+        shape=(region.rows, region.cols, info.bands),
+    )
+    mm[:] = data
+    mm.flush()
+    del mm
 
 
 class StripWriter:
@@ -227,3 +250,48 @@ def read_region(
         shape=(info.rows, info.cols, info.bands),
     )
     return np.array(mm[region.row0:region.row1, region.col0:region.col1])
+
+
+# -- deprecated free-function surface ----------------------------------------
+# parallel_read / parallel_write collapsed into the Source/Sink protocol
+# (RasterReader.read_many, ParallelRasterWriter.write_many); the wrappers
+# keep the reference's call sites working.
+
+
+def parallel_write(
+    path: str,
+    info: ImageInfo,
+    strips: List[Tuple[ImageRegion, np.ndarray]],
+    n_writers: int = 1,
+) -> None:
+    """Deprecated: use ``ParallelRasterWriter(path)`` with ``write_many``."""
+    warnings.warn(
+        "repro_torch.raster.io.parallel_write is deprecated; use "
+        "ParallelRasterWriter(path).write_many(strips, n_writers)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from repro_torch.raster.mappers import ParallelRasterWriter
+
+    sink = ParallelRasterWriter(path)
+    sink.begin(info)
+    try:
+        sink.write_many(strips, n_writers=n_writers)
+    finally:
+        sink.end()
+
+
+def parallel_read(
+    path: str, regions: List[ImageRegion], n_readers: int = 1
+) -> List[np.ndarray]:
+    """Deprecated: use ``RasterReader(path).read_many(regions, n_readers)``."""
+    warnings.warn(
+        "repro_torch.raster.io.parallel_read is deprecated; use "
+        "RasterReader(path).read_many(regions, n_readers)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from repro_torch.raster.sources import RasterReader
+
+    # read_many reads host windows only: the reader's device is never used
+    return RasterReader(path, device="cpu").read_many(regions, n_readers=n_readers)

@@ -1,14 +1,21 @@
 """One Source/Sink protocol for raster IO.
 
   * :class:`RasterSource` rides on top of :class:`~repro_torch.core.Source`:
-    a uniform ``read_region`` / ``read_many`` / ``info`` surface (host numpy
-    out, in the source's file dtype) plus a ``capabilities()`` set.
+    a uniform ``read_region`` / ``read_many`` / ``info`` / ``overview(level)``
+    surface (host numpy out, in the source's file dtype) plus a
+    ``capabilities()`` set that says how the endpoint serves pixels
+    (``tiled`` internal layout, ``pyramidal`` stored overview levels,
+    ``range-readable`` byte-range access: the COG triad).
   * :class:`RasterSink` rides on top of :class:`~repro_torch.core.Mapper`:
     ``write_region`` / ``write_many`` mirror the source surface.
 
-Counterpart of ``repro.raster.protocol``.  Overviews come with the tiled
-container (ROADMAP A.12), and so does the first source with something to
-read ahead.
+``overview(level)`` is the zoom contract: level ``L`` is the
+``2**L``-decimated view whose pixel ``(r, c)`` is full-resolution pixel
+``(r * 2**L, c * 2**L)``.  The default wraps the source in a
+:class:`~repro_torch.raster.sources.DecimatedSource`; pyramidal sources
+serve stored levels instead.
+
+Counterpart of ``repro.raster.protocol``.
 """
 from __future__ import annotations
 
@@ -21,11 +28,10 @@ import numpy as np
 from repro_torch.core.process_object import ImageInfo, Mapper, Source
 from repro_torch.core.region import ImageRegion
 
-#: capability flag: windows read as byte ranges (the tiled and pyramidal
-#: flags come with the tiled container)
-CAP_RANGE_READABLE = "range-readable"
-
-_RTIC_TODO = "the tiled RTIC container is not ported yet (ROADMAP A.12)"
+#: capability flags (a subset of the COG feature triad)
+CAP_TILED = "tiled"  # pixels live in fixed-size internal tiles
+CAP_PYRAMIDAL = "pyramidal"  # stored overview levels (not synthesized)
+CAP_RANGE_READABLE = "range-readable"  # windows read as byte ranges
 
 
 class RasterSource:
@@ -57,6 +63,14 @@ class RasterSource:
             return [self.read_region(r) for r in regions]
         with ThreadPoolExecutor(max_workers=n_readers) as pool:
             return list(pool.map(self.read_region, regions))
+
+    def overview(self, level: int) -> Source:
+        """The ``2**level``-decimated zoom view (level 0 is this source)."""
+        if level <= 0:
+            return self
+        from repro_torch.raster.sources import DecimatedSource
+
+        return DecimatedSource(self, 2 ** int(level))
 
     def read_ahead(self, regions: Iterable[ImageRegion]) -> int:
         """Hint: these windows will be read soon.  Returns how many fetches
@@ -100,8 +114,9 @@ class RasterSink:
 def as_source(obj, device=None) -> Source:
     """Coerce ``obj`` to a protocol source on ``device``.
 
-    Sources pass through; a path opens an RTIF
-    :class:`~repro_torch.raster.sources.RasterReader`; an ndarray wraps in an
+    Sources pass through; a path opens the reader its container magic names
+    (RTIF → :class:`~repro_torch.raster.sources.RasterReader`, RTIC →
+    :class:`~repro_torch.raster.tiled.TiledSource`); an ndarray wraps in an
     :class:`~repro_torch.raster.sources.ArraySource`.
     """
     if isinstance(obj, Source):
@@ -109,12 +124,13 @@ def as_source(obj, device=None) -> Source:
     if isinstance(obj, (str, os.PathLike)):
         from repro_torch.raster import io as rio
         from repro_torch.raster.sources import RasterReader
+        from repro_torch.raster.tiled import TILED_MAGIC, TiledSource
 
         path = os.fspath(obj)
         with open(path, "rb") as f:
             magic = f.read(len(rio.MAGIC))
-        if magic == rio.TILED_MAGIC:
-            raise NotImplementedError(f"{path}: {_RTIC_TODO}")
+        if magic == TILED_MAGIC:
+            return TiledSource(path, device=device)
         return RasterReader(path, device=device)
     if isinstance(obj, np.ndarray):
         from repro_torch.raster.sources import ArraySource
@@ -125,13 +141,17 @@ def as_source(obj, device=None) -> Source:
 
 def as_sink(obj) -> Mapper:
     """Coerce ``obj`` to a protocol sink: Mappers pass through, a path opens
-    a :class:`~repro_torch.raster.mappers.ParallelRasterWriter`."""
+    the writer its extension names (``.rtic`` →
+    :class:`~repro_torch.raster.tiled.TileWriter`, anything else →
+    :class:`~repro_torch.raster.mappers.ParallelRasterWriter`)."""
     if isinstance(obj, Mapper):
         return obj
     if isinstance(obj, (str, os.PathLike)):
         path = os.fspath(obj)
         if path.endswith(".rtic"):
-            raise NotImplementedError(f"{path}: {_RTIC_TODO}")
+            from repro_torch.raster.tiled import TileWriter
+
+            return TileWriter(path)
         from repro_torch.raster.mappers import ParallelRasterWriter
 
         return ParallelRasterWriter(path)

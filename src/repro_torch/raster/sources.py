@@ -1,4 +1,5 @@
-"""Raster sources: file reader, in-memory arrays, synthetic Spot6-like scenes.
+"""Raster sources: file reader, in-memory arrays, synthetic Spot6-like
+scenes, decimated zoom views.
 
 All sources are *region independent* (paper §II.C.1): pixels are a pure
 function of absolute pixel coordinates, so any requested-region decomposition
@@ -133,6 +134,71 @@ class SyntheticScene(Source, RasterSource):
         bb = torch.arange(self.bands, dtype=torch.float32, device=dev)[None, None, :]
         vals = torch.clamp(self._field(rr, cc, bb), 0.0, 4095.0)
         return vals.to(tensor_dtype(self.dtype))
+
+
+class DecimatedSource(Source, RasterSource):
+    """A zoom-level view of another source: every ``factor``-th pixel.
+
+    A requested window maps to a ``factor``-scaled window on the base
+    source (only the pixels under the window are generated, never the
+    full-resolution image), then strided: a pure function of absolute
+    coordinates whenever the base is, so region decomposition still
+    reassembles identically.  The view lives on its base's device.
+
+    The port's sources take no ``origin`` (a read is always an in-image
+    region), so the view strides ``base.generate(base_region)``; the
+    reference also rescales a ``needs_origin`` base's origin.
+    """
+
+    def __init__(self, base: Source, factor: int, name: Optional[str] = None):
+        if factor < 1:
+            raise ValueError(f"decimation factor must be >= 1, got {factor}")
+        super().__init__(name or f"decim{factor}:{base.name}", base.device)
+        self.base = base
+        self.factor = int(factor)
+
+    def output_info(self) -> ImageInfo:
+        info = self.base.output_info()
+        geo = info.geo
+        scaled = GeoTransform(
+            origin_x=geo.origin_x,
+            origin_y=geo.origin_y,
+            spacing_x=geo.spacing_x * self.factor,
+            spacing_y=geo.spacing_y * self.factor,
+        )
+        return ImageInfo(
+            -(-info.rows // self.factor),
+            -(-info.cols // self.factor),
+            info.bands,
+            info.dtype,
+            scaled,
+            info.nodata,
+        )
+
+    def overview(self, level: int) -> Source:
+        """Compose factors instead of nesting views: the level-``L`` overview
+        of a ``factor``-decimated view decimates the *base* by
+        ``factor * 2**L`` (one strided read; ceil-division composes, so the
+        pixels equal the nested view's)."""
+        if level <= 0:
+            return self
+        return DecimatedSource(self.base, self.factor * 2 ** int(level))
+
+    def generate(self, out_region: ImageRegion) -> torch.Tensor:
+        f = self.factor
+        info = self.base.output_info()
+        r0, c0 = out_region.row0 * f, out_region.col0 * f
+        # clamp the scaled window to the base image (ragged last tiles when
+        # rows/cols aren't factor-multiples); the stride below still yields
+        # at least out_region.rows/cols samples, trimmed to exact size
+        base_region = ImageRegion(
+            (r0, c0),
+            (min(out_region.rows * f, info.rows - r0),
+             min(out_region.cols * f, info.cols - c0)),
+        )
+        base = self.base.generate(base_region)
+        # a copy, so the view does not keep the f**2 larger base tensor alive
+        return base[::f, ::f][: out_region.rows, : out_region.cols].contiguous()
 
 
 def make_spot6_pair(rows_xs: int, cols_xs: int, seed: int = 0, device=None):

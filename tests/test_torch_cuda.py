@@ -5,9 +5,11 @@ against the CPU path.
 
 These need a GPU and ``nvcc`` (a CUDA kernel has no CPU mode) and skip
 elsewhere.  The executors' cases (prefetch, the re-jit baseline, the pool,
-a capture while other threads read) and the stage DAG's (the chain
+a capture while other threads read), the stage DAG's (the chain
 pipelined against barrier mode, a capture while another stage waits on
-its rows, ROADMAP C.3's DAG) are at the end.  On a GPU host:
+its rows, ROADMAP C.3's DAG) and the tiled IO's (tiled sources feeding B1
+and B2, catalogs of tiled scenes, a capture while the read-ahead thread
+fetches) are at the end.  On a GPU host:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -25,8 +27,8 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch import filters as TF  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    Orchestrator, PlanCache, Pipeline, Stage, StripeSplitter, TileSplitter, execute,
-    global_plan_cache, run_pool,
+    ImageInfo, ImageRegion, Orchestrator, PlanCache, Pipeline, Stage, StripeSplitter,
+    TileSplitter, execute, global_plan_cache, run_pool,
 )
 from repro_torch.kernels import LAUNCHERS  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
@@ -38,7 +40,8 @@ from repro_torch.kernels import prestage  # noqa: E402
 from repro_torch.kernels import ssd_scan as T_ssd  # noqa: E402
 from repro_torch.models import lm as T_lm  # noqa: E402
 from repro_torch.raster import (  # noqa: E402
-    ArraySource, MemoryMapper, ParallelRasterWriter, RasterReader, SyntheticScene,
+    ArraySource, DecimatedSource, MemoryMapper, MemoryRangeReader, ParallelRasterWriter,
+    RasterReader, SceneCatalog, SceneEntry, SyntheticScene, TiledSource, TileWriter,
 )
 from repro_torch.raster import io as rio  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -936,6 +939,105 @@ def test_c3_dag_never_wedges_on_cuda(cuda):
                 assert np.array_equal(got[name], want), name
     finally:
         sys.setswitchinterval(old)
+
+
+# --------------------------------------------------------------------------
+# tiled IO and scene catalogs on the card
+# --------------------------------------------------------------------------
+def _rtic(path, data, tile=16):
+    """``data`` through a TileWriter in five full-width strips."""
+    info = ImageInfo(*data.shape, data.dtype)
+    w = TileWriter(path, tile)
+    w.begin(info)
+    for r in StripeSplitter(5).split(info.full_region, info):
+        w.consume(r, data[r.slices()])
+    w.end()
+    return path
+
+
+def test_tiled_sources_feed_b1_and_b2_on_cuda(cuda, tmp_path):
+    """P3 over TiledSources on the card launches B1 and equals P3 over flat
+    sources of the same pixels bit for bit; PAN's stored level 1 feeds P2
+    (B2) equal to P2 over a DecimatedSource of the flat PAN."""
+    xs = RNG.integers(1, 4096, (32, 24, 4)).astype(np.uint16)
+    pan = RNG.integers(1, 4096, (128, 96, 1)).astype(np.uint16)
+    txs = TiledSource(_rtic(str(tmp_path / "xs.rtic"), xs), device=cuda)
+    tpan = TiledSource(_rtic(str(tmp_path / "pan.rtic"), pan), device=cuda)
+    try:
+        n = LAUNCHERS["pansharpen"].launches
+        _, mt = TP.run_pipeline("P3", txs, tpan, splitter=StripeSplitter(5), device=cuda)
+        assert LAUNCHERS["pansharpen"].launches > n
+        assert txs.stats()["readahead_scheduled"] > 0
+        _, mf = TP.run_pipeline("P3", ArraySource(xs, device=cuda), ArraySource(pan, device=cuda),
+                                splitter=StripeSplitter(5), device=cuda)
+        assert np.array_equal(mt.result, mf.result)
+        level1 = tpan.overview(1)
+        assert isinstance(level1, TiledSource)
+        n = LAUNCHERS["glcm_features"].launches
+        _, m1 = TP.run_pipeline("P2", level1, splitter=StripeSplitter(4), device=cuda)
+        assert LAUNCHERS["glcm_features"].launches > n
+        _, m2 = TP.run_pipeline("P2", DecimatedSource(ArraySource(pan, device=cuda), 2),
+                                splitter=StripeSplitter(4), device=cuda)
+        assert np.array_equal(m1.result, m2.result)
+    finally:
+        txs.close()
+        tpan.close()
+
+
+def test_catalogs_of_tiled_scenes_on_cuda_match_cpu(cuda, tmp_path):
+    """P8 over a catalog of TiledSources on the card (assembled there, no
+    hand kernel) equals the CPU run over ArraySources of the same pixels;
+    so does P9 over a catalog of three dates."""
+    scenes = [RNG.uniform(0, 4096, (30, 20, 4)).astype(np.float32) for _ in range(4)]
+    anchors = [(0, 0), (0, 12), (18, 0), (18, 12)]
+    dates = [RNG.integers(1, 4096, (48, 32, 4)).astype(np.uint16) for _ in range(3)]
+    tiled = [TiledSource(_rtic(str(tmp_path / f"s{k}.rtic"), a), device=cuda)
+             for k, a in enumerate(scenes + dates)]
+    before = {k: fn.launches for k, fn in LAUNCHERS.items()}
+    try:
+        for name, srcs, arrays, places in (
+                ("P8", tiled[:4], scenes, [ImageRegion(o, (30, 20)) for o in anchors]),
+                ("P9", tiled[4:], dates, [ImageRegion((0, 0), (48, 32))] * 3)):
+            cat = SceneCatalog([SceneEntry(s, r, time=t)
+                                for t, (s, r) in enumerate(zip(srcs, places))], rows=48, cols=32)
+            cpu = SceneCatalog([SceneEntry(ArraySource(a, device="cpu"), r, time=t)
+                                for t, (a, r) in enumerate(zip(arrays, places))], rows=48, cols=32)
+            _, mg = TP.run_pipeline(name, cat, splitter=StripeSplitter(5), device=cuda)
+            _, mc = TP.run_pipeline(name, cpu, splitter=StripeSplitter(5), device="cpu")
+            assert mg.result.dtype == mc.result.dtype
+            np.testing.assert_array_equal(mg.result, mc.result)
+    finally:
+        for s in tiled:
+            s.close()
+    assert {k: fn.launches for k, fn in LAUNCHERS.items()} == before
+
+
+def test_read_ahead_thread_makes_no_cuda_call_during_a_capture(cuda, tmp_path):
+    """A fresh plan captures while the read-ahead thread is busy fetching
+    tiles from a slow range reader: the thread does host work only, so the
+    capture succeeds and its replay equals the eager pull."""
+    pan = RNG.integers(1, 4096, (96, 64, 1)).astype(np.uint16)
+    reader = MemoryRangeReader.from_file(_rtic(str(tmp_path / "slow.rtic"), pan, tile=4),
+                                         latency_s=0.005)
+    src = TiledSource(reader, device=cuda)
+    try:
+        p, m = TP.p6_conversion(src)
+        info = p.info(m)
+        region = StripeSplitter(4).split(info.full_region, info)[1]
+        d = p.describe_pull(m, region, virtual=p.virtual_describe_mode())
+        arrays = d.read_sources()
+        want = p.pull(m, region)
+        assert src.read_ahead([info.full_region]) > 100  # ~0.5 s of fetches queued
+        cache = PlanCache()
+        entry = cache.compiled_for(d, lambda: p.lower_pull(d))
+        out, _ = entry(arrays, {}, d.origins())
+        busy = src._c._queue.qsize()
+        assert entry.captured and cache.stats.compiles == 1
+        assert busy > 0, "the read-ahead thread finished before the capture did"
+        assert torch.equal(out, want)
+    finally:
+        src.close()
+    assert not src._c._worker.is_alive()
 
 
 def test_a_synchronizing_filter_still_fails_its_capture(cuda):

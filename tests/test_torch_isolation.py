@@ -54,18 +54,28 @@ print(len(names))
 
 def test_without_cuda_the_entry_points_raise():
     code = """
+import os, tempfile
 import numpy as np, torch
 from repro_torch import pipelines as TP
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import lm
-from repro_torch.raster import ArraySource, make_spot6_pair
+from repro_torch.raster import (ArraySource, TiledSource, demo_catalog, demo_time_series,
+                                make_spot6_pair)
 from repro_torch.serve import ServeEngine
 assert not torch.cuda.is_available()
 cfg = reduced(get_config("olmo-1b"))
 cpu_model = lm.init_params(cfg, device="cpu")
+rtic = os.path.join(tempfile.mkdtemp(), "x.rtic")
+TP.run_pipeline("IO", np.ones((4, 4, 1), np.uint16), sink=rtic, device="cpu")
 for call in (lambda: TP.run_pipeline("IO", np.zeros((4, 4, 1), np.uint16)),
              lambda: ArraySource(np.zeros((4, 4, 1), np.uint16)),
              lambda: make_spot6_pair(8, 8),
+             lambda: TiledSource(rtic),
+             lambda: TP.run_pipeline("IO", rtic),
+             lambda: TP.p8_mosaic(),
+             lambda: TP.p9_ndvi_composite(),
+             lambda: demo_catalog(),
+             lambda: demo_time_series(),
              lambda: lm.init_params(cfg),
              lambda: ServeEngine(cfg, cpu_model)):
     try:
@@ -76,6 +86,10 @@ for call in (lambda: TP.run_pipeline("IO", np.zeros((4, 4, 1), np.uint16)),
         raise SystemExit("ran without CUDA")
 _, m = TP.run_pipeline("IO", np.ones((4, 4, 1), np.uint16), device="cpu")
 assert m.result.sum() == 16
+_, m = TP.run_pipeline("IO", rtic, device="cpu")
+assert m.result.sum() == 16
+_, m = TP.run_pipeline("P8", device="cpu")
+assert m.result.shape == (48, 32, 4)
 assert ServeEngine(cfg, cpu_model, max_seq=8, device="cpu").generate([[1, 2]], 2).shape == (1, 4)
 print("ok")
 """

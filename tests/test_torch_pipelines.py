@@ -22,6 +22,7 @@ from repro_torch.core import StripeSplitter as TStripe  # noqa: E402
 from repro_torch.core import TileSplitter as TTile  # noqa: E402
 from repro_torch.raster import ArraySource as TArray  # noqa: E402
 from repro_torch.raster import MemoryMapper, as_sink, as_source  # noqa: E402
+from repro_torch.raster import SceneCatalog, SceneEntry, TiledSource, TileWriter  # noqa: E402
 from repro_torch.raster import RasterReader as TReader  # noqa: E402
 from repro_torch.raster import SyntheticScene as TScene  # noqa: E402
 
@@ -148,12 +149,18 @@ def test_run_pipeline_checks_devices_and_formats(tmp_path):
         TP.run_pipeline("IO", TArray(XS, device="cpu"), device="meta")
     with pytest.raises(ValueError, match="executor"):
         TP.run_pipeline("IO", XS, executor="pool", device="cpu")
-    rtic = tmp_path / "x.rtic"
-    rtic.write_bytes(b"RTIC0001" + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        as_source(str(rtic), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        as_sink(str(tmp_path / "out.rtic"))
+    # the tiled container: a path's magic opens it, a ".rtic" sink writes it
+    rtic = str(tmp_path / "x.rtic")
+    TP.run_pipeline("IO", XS, sink=rtic, splitter=TStripe(3), device="cpu")
+    assert isinstance(as_sink(rtic), TileWriter)
+    src = as_source(rtic, device="cpu")
+    try:
+        assert isinstance(src, TiledSource) and src.device.type == "cpu"
+        np.testing.assert_array_equal(src.read_region(), XS)
+    finally:
+        src.close()
+    _, m = TP.run_pipeline("IO", rtic, splitter=TTile(5, 7), device="cpu")
+    np.testing.assert_array_equal(m.result, XS)
     assert isinstance(as_sink(MemoryMapper()), MemoryMapper)
 
 
@@ -203,11 +210,14 @@ def test_p4_trains_the_reference_forest_from_the_source():
 
 
 def test_p9_takes_its_scenes_as_sources():
-    """P9 composites explicit scenes; the reference's catalog-driven series
-    (a SceneCatalog, or no scene for the demo series) waits for A.12."""
-    with pytest.raises(NotImplementedError, match="A.12"):
-        TP.p9_ndvi_composite()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        TP.p9_ndvi_composite(object())
+    """P9 composites explicit scenes, a SceneCatalog in acquisition order,
+    or, given no scene, the demo series synthesized on the named device."""
     p, m = TP.p9_ndvi_composite(*[TArray(a, device="cpu") for a in SCENES[:2]], op="min")
     assert len(p.sources()) == 2 and p.info(m).bands == 1
+    cat = SceneCatalog([SceneEntry(TArray(a, device="cpu"), ImageRegion((0, 0), a.shape[:2]),
+                                   time=t) for a, t in zip(SCENES, (1, 2, 0))])
+    p, m = TP.p9_ndvi_composite(cat)
+    assert all(s.array is a for s, a in zip(p.sources(), (SCENES[2], SCENES[0], SCENES[1])))
+    p, m = TP.p9_ndvi_composite(periods=2, rows=16, cols=8, device="cpu")
+    assert len(p.sources()) == 2 and p.info(m).rows == 16
+    assert all(s.device.type == "cpu" for s in p.sources())
