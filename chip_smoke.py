@@ -100,9 +100,23 @@
    misses, read-ahead, range requests and bytes) and one interior stripe's
    tile assembly and host-to-device copy; the files (~1.9 GB) are removed
    after the phase;
-11. prints the ``kernels`` JSON line (B1's and B2's launches counted over
-    step 3's and the tiled phase's runs), the card line, and last the
-    ``ok`` line.
+11. tile serving (``tiles`` lines): ``build_tile_server`` registers P2
+    (B2), P3 (B1) and P5 (B3) over one product tile at zooms 0-2, 256^2
+    tiles (P3 at PAN's 8192^2: 1024 + 256 + 64 tiles; P2 and P5 at 2048^2:
+    64 + 16 + 4); ``warm()`` must capture each signature once unbatched and
+    once per bucket (4, 16), the first request after it must lower and
+    capture nothing, and a corner and an interior tile per target are held
+    against the CPU pull.  Then 16 closed-loop clients send a seeded Zipf
+    mix of 2048 requests through ``TileServer.submit``, batched (one CUDA
+    graph per signature and bucket, the read cache on) and unbatched (one
+    per-tile replay a request, no read cache), then the first 512 of them
+    again under ``torch.profiler``: p50/p99 latency, tiles/s, the batch
+    histogram, launches against the trace, idle share with kernel and copy
+    time apart; every distinct tile served equal to ``pull_one`` bit for
+    bit and nothing lowered or captured;
+12. prints the ``kernels`` JSON line (B1's and B2's launches counted over
+    step 3's, the tiled phase's and the tile storms' runs, B3's over step
+    3's and the storms'), the card line, and last the ``ok`` line.
 
 Every ``run_pipeline`` call goes through the plan layer (a CUDA-graph
 capture per signature, replayed per stripe) unless it says
@@ -200,7 +214,7 @@ from repro_torch.raster import (  # noqa: E402
     make_spot6_pair,
 )
 from repro_torch.raster import io as rio  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import ServeEngine, TileRequest, TileServer  # noqa: E402
 
 #: H100 SXM data-sheet peaks (at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -379,21 +393,29 @@ def check_regions(kernel: str, card_out: np.ndarray, cpu_pipeline) -> dict:
     return res
 
 
-def traced_run(name: str, run) -> tuple:
+def traced_run(name: str, run, retries: int = 1) -> tuple:
     """One run of ``run`` under ``torch.profiler``, with the launch counts
     set to 0 just before and read just after.  A captured plan's kernels
     launch on replay, where no wrapper runs (the plan layer adds each
     entry's launches per replay), so every kernel's count must equal the
-    launches of its symbols in the device trace.  Returns the run's result,
-    the counts and the profile."""
-    reset_launches()
-    held = []
-    profiled = profile_window(lambda: held.append(run()))
-    counts = launches()
-    if counts != profiled["traced_launches"]:
-        raise AssertionError(f"{name}: launch counts {counts} differ from the device trace's "
-                             f"{profiled['traced_launches']}")
-    return held[0], counts, profiled
+    launches of its symbols in the device trace.  The profiler now and then
+    loses kernel records (PERF.md §7): a run whose trace disagrees is
+    printed as a ``trace_lost`` line and run again under a fresh profiler,
+    up to ``retries`` times (0 for a run that cannot be repeated), and the
+    last trace must agree.  Returns the run's result, the counts and the
+    profile."""
+    for attempt in range(retries + 1):
+        reset_launches()
+        held = []
+        profiled = profile_window(lambda: held.append(run()))
+        counts = launches()
+        if counts == profiled["traced_launches"]:
+            return held[0], counts, profiled
+        print(json.dumps({"trace_lost": name, "attempt": attempt, "counts": counts,
+                          "traced": profiled["traced_launches"],
+                          "kernel_launches": profiled["kernel_launches"]}), flush=True)
+    raise AssertionError(f"{name}: launch counts {counts} differ from the device trace's "
+                         f"{profiled['traced_launches']}")
 
 
 def held_bytes() -> int:
@@ -1167,7 +1189,7 @@ def dag_run(label: str, stages, pipelined: bool, capacity: int, kernels=(), trac
         if traced:
             t0 = time.perf_counter()
             results, counts, profiled = traced_run(f"dag {label}",
-                                                   lambda: watchdogged(orch, timeout))
+                                                   lambda: watchdogged(orch, timeout), 0)
             wall = time.perf_counter() - t0
         else:
             torch.cuda.synchronize()
@@ -1575,9 +1597,222 @@ def tiled_runs(xs, pan, xs_np, pan_np, p3_sha256: str) -> dict:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# tile serving: P2, P3 and P5 at three zooms behind a TileServer, a storm of
+# requests batched and unbatched
+# ---------------------------------------------------------------------------
+SERVE_TILE = 256  # a web map's tile
+SERVE_ZOOMS = (0, 1, 2)
+STORM_CLIENTS = 16
+STORM_REQUESTS = 2048  # per timed storm
+PROFILED_REQUESTS = 512  # the profiled storm: its first requests (the trace's size)
+SERVE_KERNELS = {"P2": "glcm_features", "P3": "pansharpen", "P5": "meanshift"}
+#: the CPU pipelines of each served target, on the card sources' pixels
+#: (``build_tile_server`` runs mean-shift for 2 iterations)
+SERVE_CPU = {"P2": TP.p2_textures, "P3": TP.p3_pansharpening,
+             "P5": lambda src: TP.p5_meanshift(src, n_iter=2)}
+
+
+def zipf_requests(server, n: int, seed: int = 0) -> list:
+    """``n`` requests over every registered tile, rank r drawn with weight
+    1 / r^1.1 after a seeded shuffle of the universe (a map's traffic: a
+    few hot tiles and a long cold tail)."""
+    universe = [TileRequest(name, z, x, y) for name, z in server.entries()
+                for x, y in server._entries[(name, z)].grid.tiles()]
+    rng = np.random.default_rng(seed)
+    rng.shuffle(universe)
+    weights = 1.0 / np.arange(1, len(universe) + 1) ** 1.1
+    picks = rng.choice(len(universe), size=n, p=weights / weights.sum())
+    return [universe[i] for i in picks]
+
+
+def storm(server, requests: list) -> dict:
+    """Closed loop: ``STORM_CLIENTS`` threads each submit their share of
+    ``requests`` and wait for every answer before the next.  Returns the
+    wall, p50 and p99 latency, tiles/s and the first tile served per
+    request; raises once every client is joined if any failed."""
+    lats, tiles, errors = [], {}, []
+    lock = threading.Lock()
+
+    def client(part):
+        mine = []
+        try:
+            for req in part:
+                t0 = time.perf_counter()
+                tile = server.submit(req).result(timeout=WEDGE_S)
+                mine.append(time.perf_counter() - t0)
+                with lock:
+                    tiles.setdefault(req, tile)
+        except Exception as e:  # surfaced below, after every client is joined
+            errors.append(repr(e))
+        with lock:
+            lats.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(requests[i::STORM_CLIENTS],))
+               for i in range(STORM_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"storm: {len(errors)} clients failed: {errors[:3]}")
+    ms = np.asarray(lats) * 1e3
+    return dict(wall_s=wall, n=len(lats), tiles=tiles,
+                p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                tiles_per_s=len(lats) / wall)
+
+
+def serving_mode(label: str, server, requests: list, oracle: dict) -> dict:
+    """One mode's storms: ``requests`` with the launch counts set to 0 just
+    before and read just after, then their first ``PROFILED_REQUESTS``
+    under ``torch.profiler`` (launches held against the trace, idle share,
+    kernel and copy time apart).  Each storm's first tile per request must
+    equal ``pull_one`` of its region bit for bit (``oracle`` keeps each
+    request's, shared by the modes: they serve the same pipelines), and
+    nothing may lower or capture."""
+    cache = server.plan_cache
+    before = cache.stats_snapshot()
+    t0 = time.perf_counter()
+    server.start()
+    try:
+        reset_launches()
+        timed = storm(server, requests)
+        counts = launches()
+        t1 = time.perf_counter()
+        profiled_storm, traced, profiled = traced_run(
+            f"tiles {label}", lambda: storm(server, requests[:PROFILED_REQUESTS]))
+        t2 = time.perf_counter()
+    finally:
+        server.stop()
+    after = cache.stats_snapshot()
+    if (after["lowers"], after["compiles"]) != (before["lowers"], before["compiles"]):
+        raise AssertionError(f"tiles {label}: the storms lowered or captured: {before} -> {after}")
+    # each request of a pipeline runs its kernel once unbatched, and once
+    # per slot batched (padding included)
+    per_kernel = {k: sum(SERVE_KERNELS[r.pipeline] == k for r in requests) for k in LAUNCHERS}
+    for k in LAUNCHERS:
+        if counts[k] != per_kernel[k] and (server.max_batch == 1 or counts[k] < per_kernel[k]):
+            raise AssertionError(f"tiles {label}: {k} launched {counts[k]} times for "
+                                 f"{per_kernel[k]} requests")
+    for tiles in (timed["tiles"], profiled_storm["tiles"]):
+        for req, tile in tiles.items():
+            if req not in oracle:
+                e = server._entries[(req.pipeline, req.zoom)]
+                oracle[req] = e.puller.pull_one(e.grid.region(req.x, req.y))
+            if not np.array_equal(tile, oracle[req]):
+                raise AssertionError(f"tiles {label}: {req} differs from its per-tile pull")
+    m = server.metrics()
+    rec = dict(
+        requests=timed["n"], wall_s=timed["wall_s"], p50_ms=timed["p50_ms"],
+        p99_ms=timed["p99_ms"], tiles_per_s=timed["tiles_per_s"],
+        profiled_storm={k: profiled_storm[k] for k in ("n", "wall_s", "p50_ms", "p99_ms",
+                                                       "tiles_per_s")},
+        distinct_tiles=len(timed["tiles"]), requests_per_kernel=per_kernel, launches=counts,
+        profiled_launches=traced,
+        batch_histogram=m["batch_histogram"], read_cache=m["read_cache"],
+        admission=m["admission"], profile=profiled,
+        phase_s=dict(storm=t1 - t0, profiled=t2 - t1, checks=time.perf_counter() - t2),
+    )
+    print(json.dumps({"tiles": label, **rec}), flush=True)
+    return rec
+
+
+def tile_runs() -> dict:
+    """The ``tiles`` phase.  ``build_tile_server`` registers P2 (B2), P3
+    (B1) and P5 (B3) over one product tile at zooms 0-2 (P3 at PAN's 8192^2,
+    P2 and P5 at XS's 2048^2), 256^2 tiles; ``warm()`` captures each
+    signature once unbatched and once per bucket (4, 16), and the first
+    request after it lowers and captures nothing.  A corner and an interior
+    tile per target are held against the port's CPU pull.  Then a seeded
+    Zipf storm of ``STORM_REQUESTS`` requests from ``STORM_CLIENTS``
+    closed-loop clients through ``submit``, batched (``max_batch`` 16, the
+    read cache on) and unbatched (``max_batch`` 1, no read cache), both on
+    the same pipelines and ``PlanCache`` and without a tile cache, so the
+    compiled path is what is measured (:func:`serving_mode`)."""
+    cache = PlanCache()
+    batched = TP.build_tile_server(
+        rows_xs=XS_SIDE, cols_xs=XS_SIDE, zooms=SERVE_ZOOMS, tile_rows=SERVE_TILE,
+        plan_cache=cache, max_batch=16, batch_sizes=(1, 4, 16), tile_cache_entries=0,
+        prefetch_neighbors=False, device="cuda")
+    unbatched = TileServer(plan_cache=cache, max_batch=1, batch_sizes=(1,),
+                           read_cache_entries=0, tile_cache_entries=0, prefetch_neighbors=False)
+    for (name, z), e in sorted(batched._entries.items()):
+        unbatched.register(name, z, e.pipeline, e.node, SERVE_TILE)
+    t0 = time.perf_counter()
+    warm = batched.warm()
+    warm_s = time.perf_counter() - t0
+    rec = dict(warm_s=warm_s, warm=warm, targets={})
+    n_sigs = sum(w["signatures"] for w in warm.values())
+    for key, w in warm.items():
+        if w["compiles_delta"] != w["signatures"] * (1 + w["buckets"]):
+            raise AssertionError(f"tiles: {key} warmed {w}: not one capture per signature "
+                                 f"and bucket")
+    target_of = {e.puller.describe(e.grid.region(0, 0)).signature: f"{name}/z{z}"
+                 for (name, z), e in batched._entries.items()}
+    entries = [{"target": target_of.get(k[1]), "bucket": k[2], "captured": e.captured,
+                "pool_bytes": e.pool_bytes, "launches_per_replay": e.launches_per_replay}
+               for k, e in cache._entries.items() if k[0] == "serve_batched"]
+    if len(entries) != 2 * n_sigs or not all(e["captured"] for e in entries):
+        raise AssertionError(f"tiles: {len(entries)} batched entries for {n_sigs} signatures")
+    rec.update(signatures=n_sigs, batched_entries=entries,
+               pool_bytes_total=sum(e["pool_bytes"] for e in entries))
+    t0 = time.perf_counter()
+    rec["unbatched_warm"] = unbatched.warm()  # the same pipelines: nothing new
+    rec["unbatched_warm_s"] = time.perf_counter() - t0
+
+    requests = zipf_requests(batched, STORM_REQUESTS)
+    before = cache.stats_snapshot()
+    t0 = time.perf_counter()
+    batched.serve_one(requests[0])
+    torch.cuda.synchronize()
+    rec["first_request_ms"] = (time.perf_counter() - t0) * 1e3
+    after = cache.stats_snapshot()
+    rec["first_request_delta"] = {k: after[k] - before[k] for k in after}
+    if after["lowers"] != before["lowers"] or after["compiles"] != before["compiles"]:
+        raise AssertionError(f"tiles: the first request after warm-up lowered or captured: "
+                             f"{rec['first_request_delta']}")
+
+    # a corner and an interior tile per target against the CPU pull
+    t0 = time.perf_counter()
+    for (name, z), e in sorted(batched._entries.items()):
+        cpu_p, cpu_m = SERVE_CPU[name](*[ArraySource(s.read_region(), device="cpu")
+                                        for s in e.pipeline.sources()])
+        checks = {}
+        for label, (x, y) in (("corner", (0, 0)), ("interior", (e.grid.nx // 2, e.grid.ny // 2))):
+            region = e.grid.region(x, y)
+            got = batched.serve_one(TileRequest(name, z, x, y))
+            checks[label] = compare(f"{SERVE_KERNELS[name]}:{name}/z{z} {label}", got,
+                                    cpu_p.pull(cpu_m, region).numpy())
+        rec["targets"][f"{name}/z{z}"] = dict(tiles=e.grid.nx * e.grid.ny,
+                                             grid=[e.grid.nx, e.grid.ny], regions=checks)
+    rec["cpu_checks_s"] = time.perf_counter() - t0
+    print(json.dumps({"tiles": "warm", **rec}), flush=True)
+    oracle = {}
+    rec["batched"] = serving_mode("batched", batched, requests, oracle)
+    rec["unbatched"] = serving_mode("unbatched", unbatched, requests, oracle)
+    for mode in ("batched", "unbatched"):
+        for name, kernel in SERVE_KERNELS.items():
+            if rec[mode]["launches"][kernel] <= 0:
+                raise AssertionError(f"tiles {mode}: {kernel} never launched ({name})")
+    rec["speedup"] = dict(
+        tiles_per_s=rec["batched"]["tiles_per_s"] / rec["unbatched"]["tiles_per_s"],
+        p99=rec["unbatched"]["p99_ms"] / rec["batched"]["p99_ms"])
+    print(json.dumps({"tiles": "summary", "speedup": rec["speedup"],
+                      "signatures": n_sigs, "warm_s": warm_s}), flush=True)
+    del batched, unbatched, cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
 #: the main-path cells whose launches each kernel's row adds up, where
-#: more than the cell it was timed on: B1 and B2 also run in the tiled phase
-ROW_CELLS = {"pansharpen": ("P3", "tiled P3"), "glcm_features": ("P2", "tiled P2")}
+#: more than the cell it was timed on: B1 and B2 also run in the tiled
+#: phase, B1-B3 in both tile-serving storms
+ROW_CELLS = {"pansharpen": ("P3", "tiled P3", "tiles batched", "tiles unbatched"),
+             "glcm_features": ("P2", "tiled P2", "tiles batched", "tiles unbatched"),
+             "meanshift": ("P5", "tiles batched", "tiles unbatched")}
 
 
 def kernel_line(rows, launch_counts) -> tuple:
@@ -1732,14 +1967,15 @@ def serve_model(arch: str) -> tuple:
 
 
 #: the CUDA runtime and driver calls by which the host issues device work
+TRACE_FLUSH_S = 0.5
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
 def profile_window(fn) -> dict:
     """``torch.profiler`` over one call of ``fn``: host wall time, device
-    busy time (the sum of kernel times; one stream) and the kernels that
-    take most of it."""
+    busy time (the sum of kernel and copy times; one stream), of which the
+    copies and fills, and the kernels that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1749,11 +1985,19 @@ def profile_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        # CUPTI hands its kernel records over asynchronously: stopping the
+        # profiler at once after a tile storm lost one of 448 B1 launches
+        # from the trace (PERF.md §7)
+        time.sleep(TRACE_FLUSH_S)
     # device-side events only: the kernels (CPU ops also carry the device
     # time of the kernels they launch)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the busy time split: copies and fills (host<->device, device<->device)
+    # apart from the kernels proper
+    copy_ms = sum(e.self_device_time_total for e in kernels
+                  if e.key.startswith(("Memcpy", "Memset"))) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
     # what the host issued: kernel launches and CUDA-graph replays (a
     # replay's kernels are each counted in kernel_launches)
@@ -1764,6 +2008,7 @@ def profile_window(fn) -> dict:
     traced = {name: sum(e.count for e in kernels if any(sym in e.key for sym in meta["symbols"]))
               for name, meta in KERNELS.items()}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                kernel_ms=busy_ms - copy_ms, copy_ms=copy_ms,
                 kernel_launches=sum(e.count for e in kernels), host_launch_calls=issued,
                 traced_launches=traced,
                 top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
@@ -1931,6 +2176,9 @@ def main(argv: list) -> int:
     tiled = tiled_runs(xs, pan, xs_np, pan_np, runs["P3"]["pixels_sha256"])
     runs["tiled P3"] = dict(launches=tiled["P3"]["path_run"]["launches"])
     runs["tiled P2"] = dict(launches=tiled["P2"]["launches"])
+    serving = tile_runs()
+    for mode in ("batched", "unbatched"):
+        runs[f"tiles {mode}"] = dict(launches=serving[mode]["launches"])
     del xs, pan
     release_plans()
 

@@ -1,7 +1,8 @@
 """Core pipeline framework: region algebra, process-object protocol, pipeline
 DAG, the plan layer (describe/lower, ``PlanCache``), splitting strategies,
-schedules and queues, the streaming executor, the thread pool and the
-stage DAG (edge queues and the orchestrator)."""
+schedules and queues, the streaming executor, the thread pool, the tile
+server's batched puller and the stage DAG (edge queues and the
+orchestrator)."""
 from repro_torch.core.region import ImageRegion, whole
 from repro_torch.core.process_object import (
     Filter,
@@ -43,7 +44,13 @@ from repro_torch.core.scheduling import (
     static_schedule,
     work_stealing_schedule,
 )
-from repro_torch.core.streaming import StreamingExecutor, StreamResult, execute, run_pool
+from repro_torch.core.streaming import (
+    BatchedRegionPuller,
+    StreamingExecutor,
+    StreamResult,
+    execute,
+    run_pool,
+)
 from repro_torch.core.dag import (
     EdgeFanout,
     EdgeQueue,
@@ -91,6 +98,7 @@ __all__ = [
     "makespan",
     "StreamingExecutor",
     "StreamResult",
+    "BatchedRegionPuller",
     "execute",
     "run_pool",
     "RowCoverage",

@@ -312,6 +312,45 @@ def device_work(dev: torch.device):
     return _device_graphs(dev).gate.shared()
 
 
+def _capture_graph(fn: Callable, dev: torch.device, pool, name: str):
+    """Run ``fn`` once on a side stream (CUDA's lazy module loading, the
+    kernel library's build and load, device constants cached by filters),
+    then capture it into a CUDA graph allocating from ``pool``.  The caller
+    holds the device's gate alone.  Returns ``fn``'s result (the graph's
+    output tensors), the graph, the kernel launches one replay makes and
+    the device memory the capture added to the pool."""
+    current = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn()
+    current.wait_stream(side)
+    torch.cuda.synchronize(dev)
+    # the capture empties the caching allocator first; so do we, so the
+    # memory reserved after it is what the capture added to the pool
+    torch.cuda.empty_cache()
+    before = _launch_counts()
+    reserved = torch.cuda.memory_reserved(dev)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        # capture_error_mode "global" (the default): the device's gate
+        # keeps every other thread's device work out of the capture, so
+        # a stray synchronizing call anywhere fails loudly
+        with torch.cuda.graph(graph, pool=pool):
+            result = fn()
+    except Exception as e:
+        raise RuntimeError(
+            f"{name}: the plan could not be captured in a CUDA graph "
+            f"(a filter synchronizes with the host or copies from it while "
+            f"generating): {e}"
+        ) from e
+    finally:
+        after = _launch_counts()
+        _add_launches({k: before[k] - after[k] for k in before})
+    launches = {k: after[k] - before[k] for k in before}
+    return result, graph, launches, torch.cuda.memory_reserved(dev) - reserved
+
+
 class _CompiledEntry:
     """One registry entry: ``canonical_fn(arrays, pstates, origins) ->
     (pixels, new_pstates)``, compiled on its first call (see the module
@@ -349,63 +388,41 @@ class _CompiledEntry:
         return self._graph is not None
 
     def __call__(self, arrays, pstates, origins):
-        if origins.device.type == "cuda":
-            graphs = _device_graphs(origins.device)
+        return self._call(origins.device, arrays, pstates, origins)
+
+    def _call(self, device: torch.device, *args):
+        """Run the entry on ``args``: its first call compiles (captures on a
+        GPU), every call on a GPU replays."""
+        if device.type == "cuda":
+            graphs = _device_graphs(device)
             if self._graph is None:
                 with graphs.gate.exclusive():  # no other thread's device work
                     if self._graph is None:
-                        self._capture(arrays, pstates, origins, graphs.pool)
+                        self._capture(*args, graphs.pool)
                         self._stats.compiles += 1
                         self._primed = True
-                    return self._replay_locked(arrays, pstates, origins)
+                    return self._replay_locked(*args)
             with graphs.gate.shared(), graphs.lock:
-                return self._replay_locked(arrays, pstates, origins)
+                return self._replay_locked(*args)
         if not self._primed:
             with self._lock:
                 if not self._primed:
-                    out = self.canonical_fn(arrays, pstates, origins)
+                    out = self._run(*args)
                     self._stats.compiles += 1
                     self._primed = True
                     return out
+        return self._run(*args)
+
+    def _run(self, arrays, pstates, origins):
         return self.canonical_fn(arrays, pstates, origins)
 
     def _capture(self, arrays, pstates, origins, pool) -> None:
-        dev = origins.device
         self._arrays = [a.clone() for a in arrays]
         self._pstates = {n: {k: v.clone() for k, v in st.items()} for n, st in pstates.items()}
         self._origins = origins.clone()
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.canonical_fn(self._arrays, self._pstates, self._origins)
-        current.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        # the capture empties the caching allocator first; so do we, so the
-        # memory reserved after it is what the capture added to the pool
-        torch.cuda.empty_cache()
-        before = _launch_counts()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            # capture_error_mode "global" (the default): the device's gate
-            # keeps every other thread's device work out of the capture, so
-            # a stray synchronizing call anywhere fails loudly
-            with torch.cuda.graph(graph, pool=pool):
-                out, new_ps = self.canonical_fn(self._arrays, self._pstates, self._origins)
-        except Exception as e:
-            raise RuntimeError(
-                f"{self.name}: the plan could not be captured in a CUDA graph "
-                f"(a filter synchronizes with the host or copies from it while "
-                f"generating): {e}"
-            ) from e
-        finally:
-            after = _launch_counts()
-            _add_launches({k: before[k] - after[k] for k in before})
-        self.launches_per_replay = {k: after[k] - before[k] for k in before}
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self._out, self._new_ps = out, new_ps
-        self._graph = graph
+        (self._out, self._new_ps), self._graph, self.launches_per_replay, self.pool_bytes = (
+            _capture_graph(lambda: self.canonical_fn(self._arrays, self._pstates, self._origins),
+                           origins.device, pool, self.name))
 
     def _replay_locked(self, arrays, pstates, origins):
         if len(arrays) != len(self._arrays):
@@ -426,6 +443,60 @@ class _CompiledEntry:
         out = self._out.clone()
         new_ps = {n: {k: v.clone() for k, v in st.items()} for n, st in self._new_ps.items()}
         return out, new_ps
+
+
+class _BatchedEntry(_CompiledEntry):
+    """``bucket`` tiles of one signature as one program: the serving
+    engine's batched entry (:class:`~repro_torch.core.streaming.
+    BatchedRegionPuller`).  Its call takes ``bucket`` tiles' read arrays and
+    origin values and returns their outputs stacked into one
+    ``(bucket, rows, cols, bands)`` tensor on the plan's device.
+
+    On the CPU it loops ``canonical_fn`` over the tiles; its first call is
+    the compile.  On a GPU the first call captures one CUDA graph that calls
+    ``canonical_fn`` once per slot on ``bucket`` sets of static buffers and
+    stacks the outputs: the hand kernels keep one tile per launch, and a
+    group costs one copy of each read into its slot, one copy of the origin
+    values, one replay and one clone of the stacked output.  The capture,
+    the replays, ``launches_per_replay`` and ``pool_bytes`` work as a
+    :class:`_CompiledEntry`'s."""
+
+    def __init__(self, canonical_fn: Callable, bucket: int, stats: CacheStats,
+                 name: str = "plan"):
+        super().__init__(canonical_fn, stats, f"{name}[x{bucket}]")
+        self.bucket = int(bucket)
+
+    def __call__(self, arrays: List[List[torch.Tensor]], origin_values: List[Tuple[int, ...]],
+                 device: torch.device) -> torch.Tensor:
+        if len(arrays) != self.bucket or len(origin_values) != self.bucket:
+            raise ValueError(f"{self.name}: {len(arrays)} tiles for a bucket of {self.bucket}")
+        values = torch.tensor(origin_values, dtype=torch.int32)  # (bucket, n_origins)
+        return self._call(device, arrays, values)
+
+    def _run(self, arrays, origins: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self.canonical_fn(a, {}, o)[0] for a, o in zip(arrays, origins)])
+
+    def _capture(self, arrays, values: torch.Tensor, pool) -> None:
+        self._arrays = [[a.clone() for a in tile] for tile in arrays]
+        self._origins = values.to(arrays[0][0].device)
+        self._out, self._graph, self.launches_per_replay, self.pool_bytes = _capture_graph(
+            lambda: self._run(self._arrays, self._origins), self._origins.device, pool,
+            self.name)
+
+    def _replay_locked(self, arrays, values: torch.Tensor) -> torch.Tensor:
+        for slot, tile in zip(self._arrays, arrays):
+            if len(tile) != len(slot):
+                raise ValueError(f"{self.name}: {len(tile)} arrays for a plan of "
+                                 f"{len(slot)} reads")
+            for dst, src in zip(slot, tile):
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ValueError(f"{self.name}: read {tuple(src.shape)} {src.dtype} does "
+                                     f"not fit the captured {tuple(dst.shape)} {dst.dtype}")
+                dst.copy_(src)
+        self._origins.copy_(values)
+        self._graph.replay()
+        _add_launches(self.launches_per_replay)
+        return self._out.clone()
 
 
 class PlanCache:
@@ -554,9 +625,11 @@ class PlanCache:
                 entry(desc.read_sources(), desc.initial_pstates(), desc.origins())
         return len(seen)
 
-    def get_or_build(self, key: Tuple, build: Callable[[], object]):
+    def get_or_build(self, key: Tuple, build: Callable[[], object], owner=None):
         """Generic registry slot for executor-level programs, keyed by the
-        caller.  ``build`` runs outside the lock; the first insert wins."""
+        caller.  ``build`` runs outside the lock; the first insert wins.
+        With ``owner`` the slot is dropped, uncounted, once that object has
+        been garbage-collected, as a plan's entry is with its pipeline."""
         with self._lock:
             entry = self._hit(key)
             if entry is not None:
@@ -567,7 +640,7 @@ class PlanCache:
             if entry is not None:
                 return entry
             self.stats.misses += 1
-            self._store(key, built)
+            self._store(key, built, owner)
             return built
 
 

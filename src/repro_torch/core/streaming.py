@@ -48,6 +48,8 @@ runs once after the region loop.
 :func:`run_pool` runs one pipeline with ``n_workers`` threads against one
 shared ``PlanCache`` (the dynamic load balancing the paper names as future
 work, §IV.C); :func:`execute` is the one-call convenience.
+:class:`BatchedRegionPuller` is the tile server's way into the plan layer:
+same-signature tiles run as one batched entry.
 
 Counterpart of ``repro.core.streaming``.  Every thread a run starts is
 joined before it returns or raises.
@@ -59,12 +61,19 @@ import dataclasses
 import queue
 import threading
 from concurrent import futures
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.execplan import CacheStats, PlanCache, _CompiledEntry, device_work
+from repro_torch.core.execplan import (
+    CacheStats,
+    PlanCache,
+    PlanDescription,
+    _BatchedEntry,
+    _CompiledEntry,
+    device_work,
+)
 from repro_torch.core.pipeline import Pipeline
 from repro_torch.core.process_object import Mapper, PersistentFilter
 from repro_torch.core.region import ImageRegion
@@ -471,6 +480,220 @@ def run_pool(
         cache_stats=cache.stats if use_jit else None,
         cache_snapshot=cache.stats_snapshot() if use_jit else None,
     )
+
+
+class BatchedRegionPuller:
+    """Signature-batched region pulls: the serving engine's entry point into
+    the plan layer.
+
+    A batch of requested regions is described (cheap, per region), grouped by
+    canonical plan signature (the :class:`PlanCache` key is the batch key),
+    and each group runs as **one** call of a batched entry
+    (:class:`~repro_torch.core.execplan._BatchedEntry`): on a GPU one
+    CUDA-graph replay that runs the group's plan once per tile slot, so N
+    same-signature tiles cost one replay instead of N.  Batched entries
+    register in the same :class:`PlanCache` under ``("serve_batched",
+    signature, bucket)``; batch sizes round up to the configured buckets
+    (padding replicates the last tile) so the registry holds a bounded
+    number of batched entries per signature.  Outputs are host numpy
+    arrays, bit-identical to the unbatched per-tile path (:meth:`pull_one`).
+
+    Pipelines with persistent filters are refused: a persistent reduction
+    makes tile outputs depend on request order, which serving cannot honor.
+
+    ``virtual`` should carry the describe mode the streaming executor would
+    pick (``Pipeline.virtual_describe_mode()``, the default), so tile
+    signatures collapse onto the entries a streaming warm-up run already
+    lowered.
+
+    ``read_cache_entries`` bounds an LRU of per-region source reads (the
+    raster block cache of a tile server: hot Zipf tiles re-request the same
+    windows, and the read is the per-tile cost batching cannot amortize).
+    Cached reads are the *same tensors* the uncached path would produce, so
+    outputs are unaffected; 0 disables.
+
+    Counterpart of ``repro.core.streaming.BatchedRegionPuller``, which runs
+    a ``jax.vmap`` of the plan over a leading tile axis.
+    """
+
+    def __init__(
+        self,
+        pipeline: Pipeline,
+        node,
+        plan_cache: Optional[PlanCache] = None,
+        batch_sizes=(1, 4, 16),
+        virtual: "Optional[bool | str]" = None,
+        read_cache_entries: int = 1024,
+    ):
+        if pipeline.persistent_nodes():
+            raise ValueError(
+                "BatchedRegionPuller: pipeline has persistent filters "
+                f"({[p.name for p in pipeline.persistent_nodes()]}) — "
+                "per-tile serving cannot thread cross-region state"
+            )
+        self.pipeline = pipeline
+        self.node = node
+        self.plan_cache = plan_cache if plan_cache is not None else PlanCache()
+        self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
+        if not self.batch_sizes or self.batch_sizes[0] < 1:
+            raise ValueError(f"bad batch_sizes: {batch_sizes}")
+        self.virtual = pipeline.virtual_describe_mode() if virtual is None else virtual
+        self.dtype = pipeline.info(node).dtype
+        self.read_cache_entries = int(read_cache_entries)
+        self._read_cache: "collections.OrderedDict[Tuple, List[torch.Tensor]]" = (
+            collections.OrderedDict()
+        )
+        self._read_lock = threading.Lock()
+        self.read_hits = 0
+        self.read_misses = 0
+
+    def _read(self, desc: PlanDescription) -> List[torch.Tensor]:
+        """``desc.read_sources()`` through the bounded read LRU.  The key is
+        the described output region + signature: for a fixed (pipeline,
+        node, describe mode) that pins the exact read windows."""
+        if self.read_cache_entries <= 0:
+            return desc.read_sources()
+        key = (desc.out_region.index, desc.out_region.size, desc.signature)
+        with self._read_lock:
+            arrays = self._read_cache.get(key)
+            if arrays is not None:
+                self._read_cache.move_to_end(key)
+                self.read_hits += 1
+                return arrays
+            self.read_misses += 1
+        arrays = desc.read_sources()
+        with self._read_lock:
+            self._read_cache[key] = arrays
+            self._read_cache.move_to_end(key)
+            while len(self._read_cache) > self.read_cache_entries:
+                self._read_cache.popitem(last=False)
+        return arrays
+
+    def _host(self, out: torch.Tensor) -> np.ndarray:
+        return _to_host(out).astype(self.dtype, copy=False)
+
+    def describe(self, region: ImageRegion) -> PlanDescription:
+        return self.pipeline.describe_pull(self.node, region, virtual=self.virtual)
+
+    def _entry(self, desc: PlanDescription) -> _CompiledEntry:
+        return self.plan_cache.compiled_for(desc, lambda: self.pipeline.lower_pull(desc))
+
+    def bucket(self, n: int) -> int:
+        """Smallest configured batch bucket holding ``n`` tiles (the largest
+        bucket when ``n`` exceeds them all: callers split oversize groups)."""
+        for b in self.batch_sizes:
+            if n <= b:
+                return b
+        return self.batch_sizes[-1]
+
+    def _batched_entry(self, desc: PlanDescription, bucket: int) -> _BatchedEntry:
+        """This signature's batched entry for ``bucket`` tiles, from the
+        shared registry.  Its first call counts one compile (a capture on a
+        GPU), as the reference counts one trace per (signature, bucket), so
+        a warm registry proves itself with a zero compile delta."""
+        entry = self._entry(desc)
+        return self.plan_cache.get_or_build(
+            ("serve_batched", desc.signature, bucket),
+            lambda: _BatchedEntry(entry.canonical_fn, bucket, self.plan_cache.stats, entry.name),
+            owner=self.pipeline,
+        )
+
+    def pull_one(self, region: ImageRegion) -> np.ndarray:
+        """Unbatched single-region pull through the registry (the per-tile
+        oracle the batched path is held against)."""
+        return self.pull_described([self.describe(region)])[0]
+
+    def _chunks(self, n: int) -> List[int]:
+        """Decompose a group of ``n`` tiles into bucket-sized chunks, peeling
+        exact smaller buckets off when padding to the next bucket would waste
+        more than half the real work (8 tiles on buckets (1, 4, 16) run as
+        4 + 4, not padded to 16)."""
+        out: List[int] = []
+        while n > 0:
+            b = self.bucket(n)
+            if b <= n:
+                take = b
+            else:
+                lower = max(x for x in self.batch_sizes if x <= n)
+                if lower > 1 and (b - n) * 2 >= n:
+                    take = lower
+                else:
+                    out.append(n)  # pad n up to b in a single call
+                    break
+            out.append(take)
+            n -= take
+        return out
+
+    def pull_described(self, descs: List[PlanDescription]) -> List[np.ndarray]:
+        """Run already-described same-signature requests as one batched
+        call (singletons skip the batched entry and run unbatched).  Groups
+        that don't land on a bucket split into bucket-exact chunks (see
+        :meth:`_chunks`); only the final remainder pads."""
+        if not descs:
+            return []
+        if len(descs) == 1:
+            d = descs[0]
+            out, _ = self._entry(d)(self._read(d), {}, d.origins())
+            return [self._host(out)]
+        sizes = self._chunks(len(descs))
+        if len(sizes) > 1:
+            out: List[np.ndarray] = []
+            i = 0
+            for s in sizes:
+                out.extend(self.pull_described(descs[i : i + s]))
+                i += s
+            return out
+        n = len(descs)
+        bucket = self.bucket(n)
+        arrays = [self._read(d) for d in descs]
+        origins = [d.origin_values for d in descs]
+        while len(arrays) < bucket:  # pad by replicating the last tile
+            arrays.append(arrays[-1])
+            origins.append(origins[-1])
+        stacked = self._batched_entry(descs[0], bucket)(arrays, origins, descs[0].device)
+        host = self._host(stacked[:n])  # the padding slots stay on the device
+        return [host[i] for i in range(n)]
+
+    def pull_many(self, regions) -> List[np.ndarray]:
+        """Pull a batch of regions, coalescing same-signature requests into
+        one batched call each.  Output order matches input order."""
+        descs = [self.describe(r) for r in regions]
+        groups: Dict[Tuple, List[int]] = {}
+        for i, d in enumerate(descs):
+            groups.setdefault(d.signature, []).append(i)
+        out: List[Optional[np.ndarray]] = [None] * len(regions)
+        for idxs in groups.values():
+            tiles = self.pull_described([descs[i] for i in idxs])
+            for i, tile in zip(idxs, tiles):
+                out[i] = tile
+        return out  # type: ignore[return-value]
+
+    def warm(self, regions, buckets=None) -> Dict[str, int]:
+        """Serving warm-up: lower and compile every distinct signature in
+        ``regions`` (run once, via :meth:`PlanCache.warm`) and prime the
+        batched entries for each requested bucket size (default: every
+        configured bucket > 1), so the first live request after warm-up is
+        a pure registry hit: zero lowers, zero compiles (on a GPU, zero
+        captures)."""
+        before = self.plan_cache.stats_snapshot()
+        n_sigs = self.plan_cache.warm(self.pipeline, self.node, regions, virtual=self.virtual)
+        buckets = tuple(b for b in (self.batch_sizes if buckets is None else buckets) if b > 1)
+        seen = set()
+        for region in regions:
+            desc = self.describe(region)
+            if desc.signature in seen:
+                continue
+            seen.add(desc.signature)
+            for b in buckets:
+                # prime with replicated copies of this region's real reads,
+                # so the entry compiles (captures) at the bucket's shape now
+                self.pull_described([desc] * b)
+        after = self.plan_cache.stats_snapshot()
+        return {
+            "signatures": n_sigs,
+            "buckets": len(buckets),
+            **{f"{k}_delta": after[k] - before[k] for k in after},
+        }
 
 
 def execute(

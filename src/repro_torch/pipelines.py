@@ -1,9 +1,10 @@
 """The paper's seven benchmark pipelines P1–P7 (§III.B), the
 catalog-driven multi-scene pipelines P8 (mosaic) and P9 (NDVI time-series
 composite), and the pure I/O pipeline as ready-made graphs;
-:func:`run_pipeline`, which streams any of them; and :func:`chain_stages`,
+:func:`run_pipeline`, which streams any of them; :func:`chain_stages`,
 the pansharpen → texture → classify stage DAG for the
-:class:`~repro_torch.core.Orchestrator`.
+:class:`~repro_torch.core.Orchestrator`; and :func:`build_tile_server`,
+which registers P2, P3 and P5 for tile serving across zoom levels.
 
 Each builder returns ``(pipeline, mapper)`` terminated by the given mapper
 factory (defaults to an in-memory mapper; pass a ParallelRasterWriter factory
@@ -51,6 +52,7 @@ from repro_torch.raster import (
     ParallelRasterWriter,
     RasterReader,
     SceneCatalog,
+    SyntheticScene,
     as_sink,
     as_source,
     demo_catalog,
@@ -289,6 +291,65 @@ def chain_stages(
     ]
 
 
+def build_tile_server(
+    rows_xs: int = 32,
+    cols_xs: int = 32,
+    seed: int = 0,
+    zooms: Tuple[int, ...] = (0, 1),
+    pipelines: Tuple[str, ...] = ("P2", "P3", "P5"),
+    tile_rows: int = 16,
+    tile_cols: Optional[int] = None,
+    server=None,
+    meanshift_iters: int = 2,
+    device=None,
+    **server_kw,
+):
+    """Register the kernel-backed pipelines (P2 textures with B2, P3
+    pansharpening with B1, P5 mean-shift with B3) for tile serving across
+    zoom levels, with their scenes synthesized on ``device`` (``cuda``
+    unless the caller names another; the kernels run where the data is).
+
+    Zoom ``z`` serves the ``2**z`` overview view of each product, routed
+    through the Source/Sink protocol
+    (:func:`repro_torch.serve.tiles.zoom_view`): pyramidal sources serve
+    stored levels, everything else decimates on the fly
+    (:class:`~repro_torch.raster.DecimatedSource`: tile-window reads on the
+    base, never the full image); P3 keeps its 4× PAN/XS ratio at every zoom
+    by decimating both products.  Keep ``tile_rows``/``tile_cols``
+    multiples of the resample ratio (4) so P3 tiles share tap phase:
+    interior tiles then collapse to one plan signature per zoom and batch
+    together.
+
+    Returns the (unstarted) :class:`~repro_torch.serve.TileServer`; callers
+    run ``server.warm()`` then either the synchronous ``serve()`` or
+    ``start()``/``submit()``.  Extra keyword arguments construct the server
+    (admission controller, batch sizes, tile cache size, ...).
+    """
+    from repro_torch.serve.tiles import TileServer, zoom_view
+
+    dev = resolve_device(device)
+    if server is None:
+        server = TileServer(**server_kw)
+    elif server_kw:
+        raise ValueError("pass server_kw only when the server is built here")
+    for z in zooms:
+        if "P2" in pipelines:
+            scene = SyntheticScene(rows_xs, cols_xs, bands=4, seed=seed, name=f"XS_z{z}",
+                                   device=dev)
+            p, m = p2_textures(zoom_view(scene, z))
+            server.register("P2", z, p, m, tile_rows, tile_cols)
+        if "P3" in pipelines:
+            xs, pan = make_spot6_pair(rows_xs, cols_xs, seed=seed, device=dev)
+            p, m = p3_pansharpening(zoom_view(xs, z), zoom_view(pan, z))
+            server.register("P3", z, p, m, tile_rows, tile_cols)
+        if "P5" in pipelines:
+            scene = SyntheticScene(rows_xs, cols_xs, bands=4, seed=seed + 3, name=f"MS_z{z}",
+                                   device=dev)
+            p, m = p5_meanshift(zoom_view(scene, z), n_iter=meanshift_iters)
+            server.register("P5", z, p, m, tile_rows, tile_cols)
+    return server
+
+
 ALL = {
     "P1": p1_orthorectification,
     "P2": p2_textures,
@@ -335,8 +396,8 @@ def run_pipeline(
 
     ``executor="streaming"`` runs :class:`~repro_torch.core.StreamingExecutor`
     (source prefetch and write-behind); ``executor="pool"`` runs
-    :func:`~repro_torch.core.run_pool` with ``n_workers`` threads, which the
-    caller must name.  The multi-GPU ``"spmd"`` executor is not ported yet
+    :func:`~repro_torch.core.run_pool` with ``n_workers`` threads (one by
+    default).  The multi-GPU ``"spmd"`` executor is not ported yet
     (ROADMAP A.14).
 
     The run goes through the plan layer: ``plan_cache`` defaults to the
@@ -351,8 +412,6 @@ def run_pipeline(
         raise NotImplementedError("the multi-GPU 'spmd' executor is not ported yet (ROADMAP A.14)")
     if executor not in ("streaming", "pool"):
         raise ValueError(f"unknown executor {executor!r}")
-    if executor == "pool" and n_workers is None:
-        raise ValueError("executor='pool' needs n_workers=")
     dev = resolve_device(device)
     opened = {}  # position -> the source this run opened from a path or array
     try:
@@ -381,7 +440,7 @@ def run_pipeline(
                 )
         cache = plan_cache if plan_cache is not None else global_plan_cache()
         if executor == "pool":
-            res = run_pool(pipeline, mapper, splitter, n_workers=n_workers, plan_cache=cache,
+            res = run_pool(pipeline, mapper, splitter, n_workers=n_workers or 1, plan_cache=cache,
                            use_jit=use_jit, keep_outputs=keep_outputs)
         else:
             res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,

@@ -7,9 +7,11 @@ These need a GPU and ``nvcc`` (a CUDA kernel has no CPU mode) and skip
 elsewhere.  The executors' cases (prefetch, the re-jit baseline, the pool,
 a capture while other threads read), the stage DAG's (the chain
 pipelined against barrier mode, a capture while another stage waits on
-its rows, ROADMAP C.3's DAG) and the tiled IO's (tiled sources feeding B1
+its rows, ROADMAP C.3's DAG), the tiled IO's (tiled sources feeding B1
 and B2, catalogs of tiled scenes, a capture while the read-ahead thread
-fetches) are at the end.  On a GPU host:
+fetches) and tile serving's (batched graphs against per-tile replays,
+captures per signature and bucket, prefetch and dispatch replaying at
+once) are at the end.  On a GPU host:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -44,7 +46,7 @@ from repro_torch.raster import (  # noqa: E402
     RasterReader, SceneCatalog, SceneEntry, SyntheticScene, TiledSource, TileWriter,
 )
 from repro_torch.raster import io as rio  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import ServeEngine, TileRequest  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1038,6 +1040,117 @@ def test_read_ahead_thread_makes_no_cuda_call_during_a_capture(cuda, tmp_path):
     finally:
         src.close()
     assert not src._c._worker.is_alive()
+
+
+# -- tile serving: one CUDA graph per (signature, bucket) ----------------------
+SERVED_KERNEL = {"P2": "glcm_features", "P3": "pansharpen", "P5": "meanshift"}
+
+
+def _tile_server(dev, **kw):
+    kw = dict(dict(rows_xs=64, cols_xs=64, zooms=(0, 1), tile_rows=16, plan_cache=PlanCache(),
+                   tile_cache_entries=0, prefetch_neighbors=False, batch_sizes=(1, 4, 16)),
+              **kw)
+    return TP.build_tile_server(device=dev, **kw)
+
+
+def _batched_entries(cache):
+    return {k: e for k, e in cache._entries.items() if k[0] == "serve_batched"}
+
+
+def _largest_group(puller, grid):
+    groups = {}
+    for x, y in grid.tiles():
+        d = puller.describe(grid.region(x, y))
+        groups.setdefault(d.signature, []).append(d)
+    return max(groups.values(), key=len)
+
+
+@pytest.mark.parametrize("name", ["P2", "P3", "P5"])
+def test_batched_graphs_equal_per_tile_replays(cuda, name):
+    """Groups of 4, 7 (4 + 3 padded to 4), 13 (padded to 16) and 16 tiles
+    of one signature, each one replay per chunk, equal the per-tile graph
+    replays bit for bit; each replay launches the kernel once per slot."""
+    server = _tile_server(cuda, pipelines=(name,), zooms=(0,),
+                          rows_xs=64 if name == "P3" else 128)
+    cache = server.plan_cache
+    warm = server.warm()[f"{name}/z0"]
+    entry = server._entries[(name, 0)]
+    puller = entry.puller
+    descs = _largest_group(puller, entry.grid)
+    assert len(descs) >= 16
+    kernel = LAUNCHERS[SERVED_KERNEL[name]]
+    compiles = cache.stats.compiles
+    for n, slots in ((4, 4), (7, 8), (13, 16), (16, 16)):
+        before = kernel.launches
+        tiles = puller.pull_described(descs[:n])
+        assert kernel.launches - before == slots
+        for d, tile in zip(descs[:n], tiles):
+            np.testing.assert_array_equal(tile, puller.pull_one(d.out_region))
+    assert cache.stats.compiles == compiles  # all replays of warm's captures
+    batched = _batched_entries(cache)
+    assert len(batched) == 2 * warm["signatures"]  # buckets 4 and 16
+    for (_, _, bucket), e in batched.items():
+        assert e.captured and e.bucket == bucket
+        assert e.launches_per_replay[SERVED_KERNEL[name]] == bucket
+
+
+def test_one_capture_per_signature_and_bucket_and_none_after_warm(cuda):
+    """Warm-up captures each signature once unbatched and once per bucket;
+    serving every tile of P2, P3 and P5 at two zooms after it captures
+    nothing, and equals the per-tile replays."""
+    server = _tile_server(cuda)
+    cache = server.plan_cache
+    warm = server.warm()
+    for stats in warm.values():
+        assert stats["compiles_delta"] == stats["signatures"] * (1 + stats["buckets"])
+        assert stats["lowers_delta"] == stats["signatures"]
+    assert sum(w["signatures"] for w in warm.values()) * 2 == len(_batched_entries(cache))
+    before = cache.stats_snapshot()
+    reqs = [TileRequest(n, z, x, y) for n, z in server.entries()
+            for x, y in server._entries[(n, z)].grid.tiles()]
+    tiles = server.serve(reqs)
+    after = cache.stats_snapshot()
+    assert (after["compiles"], after["lowers"]) == (before["compiles"], before["lowers"])
+    for req, tile in zip(reqs, tiles):
+        e = server._entries[(req.pipeline, req.zoom)]
+        np.testing.assert_array_equal(tile, e.puller.pull_one(e.grid.region(req.x, req.y)))
+
+
+def test_prefetcher_and_dispatcher_replay_concurrently_without_a_capture(cuda):
+    """With neighbour prefetch on, four client threads submit through the
+    dispatcher while the per-zoom prefetchers pull neighbours: both replay
+    warm's graphs at once and nothing is captured."""
+    server = _tile_server(cuda, tile_cache_entries=512, prefetch_neighbors=True)
+    cache = server.plan_cache
+    server.warm()
+    compiles = cache.stats.compiles
+    reqs = [TileRequest(n, z, x, y) for n, z in server.entries()
+            for x, y in server._entries[(n, z)].grid.tiles()]
+    results, errors = {}, []
+
+    def client(part):
+        try:
+            for r in part:
+                results[r] = server.submit(r).result(timeout=120)
+        except Exception as e:  # pragma: no cover — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(reqs[i::4],)) for i in range(4)]
+    server.start()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+            assert not t.is_alive()
+    finally:
+        server.stop()
+    assert not errors
+    assert cache.stats.compiles == compiles
+    assert server.metrics()["prefetch"]["enqueued"] > 0
+    for r, tile in results.items():
+        e = server._entries[(r.pipeline, r.zoom)]
+        np.testing.assert_array_equal(tile, e.puller.pull_one(e.grid.region(r.x, r.y)))
 
 
 def test_a_synchronizing_filter_still_fails_its_capture(cuda):

@@ -61,7 +61,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import lm
 from repro_torch.raster import (ArraySource, TiledSource, demo_catalog, demo_time_series,
                                 make_spot6_pair)
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import ServeEngine, TileRequest, TileServer
 assert not torch.cuda.is_available()
 cfg = reduced(get_config("olmo-1b"))
 cpu_model = lm.init_params(cfg, device="cpu")
@@ -77,7 +77,9 @@ for call in (lambda: TP.run_pipeline("IO", np.zeros((4, 4, 1), np.uint16)),
              lambda: demo_catalog(),
              lambda: demo_time_series(),
              lambda: lm.init_params(cfg),
-             lambda: ServeEngine(cfg, cpu_model)):
+             lambda: ServeEngine(cfg, cpu_model),
+             lambda: TP.build_tile_server(),
+             lambda: TP.build_tile_server(server=TileServer())):
     try:
         call()
     except RuntimeError as e:
@@ -91,6 +93,8 @@ assert m.result.sum() == 16
 _, m = TP.run_pipeline("P8", device="cpu")
 assert m.result.shape == (48, 32, 4)
 assert ServeEngine(cfg, cpu_model, max_seq=8, device="cpu").generate([[1, 2]], 2).shape == (1, 4)
+tiles = TP.build_tile_server(pipelines=("P5",), zooms=(0,), device="cpu")
+assert tiles.entries() == [("P5", 0)] and tiles.serve_one(TileRequest("P5", 0, 1, 1)).shape == (16, 16, 4)
 print("ok")
 """
     proc = _run(code, CUDA_VISIBLE_DEVICES="")

@@ -147,8 +147,13 @@ def test_synthetic_scene_matches_reference(dtype, atol, rtol):
 def test_run_pipeline_checks_devices_and_formats(tmp_path):
     with pytest.raises(ValueError, match="lives on"):
         TP.run_pipeline("IO", TArray(XS, device="cpu"), device="meta")
-    with pytest.raises(ValueError, match="executor"):
-        TP.run_pipeline("IO", XS, executor="pool", device="cpu")
+    # executor="pool" without n_workers runs one worker, as the reference
+    # does, and equals the streaming run bit for bit
+    pooled, _ = TP.run_pipeline("IO", XS, executor="pool", keep_outputs=True, device="cpu")
+    streamed, _ = TP.run_pipeline("IO", XS, keep_outputs=True, device="cpu")
+    assert pooled.regions_processed == streamed.regions_processed
+    for got, want in zip(pooled.outputs, streamed.outputs):
+        np.testing.assert_array_equal(got, want)
     # the tiled container: a path's magic opens it, a ".rtic" sink writes it
     rtic = str(tmp_path / "x.rtic")
     TP.run_pipeline("IO", XS, sink=rtic, splitter=TStripe(3), device="cpu")
@@ -162,6 +167,19 @@ def test_run_pipeline_checks_devices_and_formats(tmp_path):
     _, m = TP.run_pipeline("IO", rtic, splitter=TTile(5, 7), device="cpu")
     np.testing.assert_array_equal(m.result, XS)
     assert isinstance(as_sink(MemoryMapper()), MemoryMapper)
+
+
+def test_pool_without_n_workers_matches_reference():
+    """ROADMAP C.12: ``executor="pool"`` with no ``n_workers`` runs one
+    worker in both packages, with equal outputs."""
+    arr = np.random.default_rng(12).integers(0, 4096, size=(32, 40, 4)).astype(np.uint16)
+    _, jm = JP.run_pipeline("P6", JArray(arr), executor="pool")
+    res, tm = TP.run_pipeline("P6", TArray(arr, device="cpu"), executor="pool", device="cpu")
+    _, sm = TP.run_pipeline("P6", TArray(arr, device="cpu"), device="cpu")
+    assert res.pixels_processed == 32 * 40
+    assert tm.result.dtype == jm.result.dtype == np.uint8
+    np.testing.assert_array_equal(tm.result, jm.result)
+    np.testing.assert_array_equal(tm.result, sm.result)
 
 
 def test_streaming_reraises_a_failed_write_and_ends_the_mapper():

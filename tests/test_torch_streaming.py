@@ -686,8 +686,12 @@ def test_run_pipeline_pool_matches_the_reference(n_workers):
 def test_run_pipeline_names_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A.14"):
         TP.run_pipeline("P6", _img(8, 8), executor="spmd", device="cpu")
-    with pytest.raises(ValueError, match="n_workers"):
-        TP.run_pipeline("P6", _img(8, 8), executor="pool", device="cpu")
+    # ROADMAP C.12: the pool without n_workers runs one worker, as the
+    # reference does, and equals the streaming run
+    pooled, pm = TP.run_pipeline("P6", _img(8, 8), executor="pool", device="cpu")
+    _, sm = TP.run_pipeline("P6", _img(8, 8), device="cpu")
+    assert pooled.regions_processed >= 1
+    np.testing.assert_array_equal(pm.result, sm.result)
     with pytest.raises(ValueError, match="executor"):
         TP.run_pipeline("P6", _img(8, 8), executor="dag", device="cpu")
 
