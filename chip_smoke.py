@@ -114,9 +114,25 @@
     histogram, launches against the trace, idle share with kernel and copy
     time apart; every distinct tile served equal to ``pull_one`` bit for
     bit and nothing lowered or captured;
-12. prints the ``kernels`` JSON line (B1's and B2's launches counted over
-    step 3's, the tiled phase's and the tile storms' runs, B3's over step
-    3's and the storms'), the card line, and last the ``ok`` line.
+12. the tile-grid SPMD executor (``spmd`` lines): ``ParallelExecutor`` over
+    ``[cuda:0] * n`` ranks (one controller, the ranks sharing the card),
+    each grid after a streaming warm-up (``execute`` with
+    ``TileSplitter(Hr, Wc)``, the grid's tile geometry) on the same
+    ``PlanCache``: P3 (B1), P2 (B2) and P5 (B3) on 2 x 2, P2 and P5 on the
+    ragged 2 x 3, P3 on 8 x 1 strips, STATS on 2 x 2 and P1 on 4 x 1.  Each
+    grid output must equal its streaming run bit for bit (persistent state
+    within rtol 1e-4), lower and capture nothing after the warm-up, and
+    launch its kernel once per rank per run (wrappers and device trace);
+    each line: host walls of the grid and of the streaming run, the
+    profiled grid run's idle share with kernel and copy ms apart, peak and
+    held device memory, the card.  Then ``halo_exchange_rows``/``_cols`` on
+    card shards against the CPU's, and ``chain_stages`` with its
+    pansharpen stage on 2 SPMD ranks, barrier and pipelined: the files
+    equal each other and step 9's pool chain's bit for bit;
+13. prints the ``kernels`` JSON line (B1's and B2's launches counted over
+    step 3's, the tiled phase's, the tile storms' and the SPMD grids' runs,
+    B3's over step 3's, the storms' and the grids'), the card line, and
+    last the ``ok`` line.
 
 Every ``run_pipeline`` call goes through the plan layer (a CUDA-graph
 capture per signature, replayed per stripe) unless it says
@@ -167,18 +183,24 @@ from repro_torch.core import (  # noqa: E402
     AutoSplitter,
     ImageRegion,
     Orchestrator,
+    ParallelExecutor,
     PersistentFilter,
     Pipeline,
     PlanCache,
     Stage,
     StripeSplitter,
+    TileSplitter,
     VMEMTileSplitter,
     execute,
     global_plan_cache,
+    halo_exchange_cols,
+    halo_exchange_rows,
+    padded_tile_grid,
     reset_global_plan_cache,
     run_pool,
     windowed_requests,
 )
+from repro_torch.core.execplan import _CompiledEntry  # noqa: E402
 from repro_torch.core.splitting import H100_L2_BYTES  # noqa: E402
 from repro_torch.filters import (  # noqa: E402
     BandMath,
@@ -346,6 +368,27 @@ def compare(name: str, got: np.ndarray, want: np.ndarray) -> dict:
     return out
 
 
+def compare_on_card(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """:func:`compare` of two card tensors, on the card (whole tiles, where
+    host float64 copies would cost seconds); NaN only where both are."""
+    got, want = got.to(torch.float64), want.to(torch.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    t = TOL[name.split(":")[0]]
+    err = (got - want).abs()
+    big = want.abs() > 1e-3
+    out = {
+        "max_abs_err": float(err.nan_to_num(nan=0.0).max()),
+        "max_rel_err": float((err[big] / want[big].abs()).nan_to_num(nan=0.0).max())
+        if bool(big.any()) else 0.0,
+        "mismatches": int((got != want).sum()),
+    }
+    ok = (err <= t["atol"] + t["rtol"] * want.abs()) | (got.isnan() & want.isnan())
+    if not bool(ok.all()):
+        raise AssertionError(f"{name}: {int((~ok).sum())} elements outside {t}: {out}")
+    return out
+
+
 def tol_score(name: str, got: np.ndarray, want: np.ndarray) -> float:
     """max |got − want| / (atol + rtol·|want|) at TOL[name]: above 1 fails."""
     t = TOL[name]
@@ -379,13 +422,16 @@ def stripe_inputs(pipeline, node, region):
     return [pipeline.pull(u, r) for u, r in zip(ups, reqs)]
 
 
-def check_regions(kernel: str, card_out: np.ndarray, cpu_pipeline) -> dict:
-    """Hold a corner and an interior region of the card output against the
-    port's CPU pull of the same pipeline."""
+def check_regions(kernel: str, card_out: np.ndarray, cpu_pipeline, more=()) -> dict:
+    """Hold a corner and an interior region of the card output, and the
+    regions ``more`` names as ``(label, row0, col0)``, against the port's
+    CPU pull of the same pipeline."""
     cpu_p, cpu_m = cpu_pipeline
     rows, cols = card_out.shape[:2]
     res = {}
-    for label, r0, c0 in (("corner", 0, 0), ("interior", rows // 2 - CHECK // 2 + 7, cols // 2 - CHECK // 2 + 3)):
+    for label, r0, c0 in (("corner", 0, 0),
+                          ("interior", rows // 2 - CHECK // 2 + 7, cols // 2 - CHECK // 2 + 3),
+                          *more):
         reg = ImageRegion((r0, c0), (CHECK, CHECK))
         want = cpu_p.pull(cpu_m, reg).numpy()
         rs, cs = reg.slices()
@@ -1202,7 +1248,8 @@ def dag_run(label: str, stages, pipelined: bool, capacity: int, kernels=(), trac
         launched = {k for k, n in counts.items() if n}
         if launched != set(kernels):
             raise AssertionError(f"dag {label}: launches {counts}, expected {sorted(kernels)}")
-        entries = cache.entries()
+        # the plans' entries (an SPMD stage's rank program shares the cache)
+        entries = [e for e in cache.entries() if isinstance(e, _CompiledEntry)]
         if not (entries and all(e.captured for e in entries)):
             raise AssertionError(f"dag {label}: a plan ran without its CUDA graph")
         per_stage = {name: sum(e.name.startswith(f"{m.name}@") for e in entries)
@@ -1807,12 +1854,243 @@ def tile_runs() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the tile-grid SPMD executor: grids of ranks sharing the card
+# ---------------------------------------------------------------------------
+#: (cell, grid): P3, P2 and P5 on 2 x 2, P2 and P5 on the ragged 2 x 3 (8192
+#: and 2048 columns over 3), P3 on the stripes' 8 x 1, STATS and P1
+SPMD_CELLS = (("P3", (2, 2)), ("P2", (2, 2)), ("P5", (2, 2)), ("P2", (2, 3)), ("P5", (2, 3)),
+              ("P3", (8, 1)), ("STATS", (2, 2)), ("P1", (4, 1)))
+SPMD_KERNELS = {"P3": "pansharpen", "P2": "glcm_features", "P5": "meanshift"}
+#: persistent state: the ranks' partial sums fold in another order
+SPMD_STATE_RTOL = 1e-4
+SPMD_DAG_RANKS = 2
+
+
+def spmd_graphs(xs, pan) -> dict:
+    return {"P1": lambda: TP.p1_orthorectification(pan), "P2": lambda: TP.p2_textures(pan),
+            "P3": lambda: TP.p3_pansharpening(xs, pan),
+            "P5": lambda: TP.p5_meanshift(xs, **P5_KW), "STATS": lambda: stats_graph(xs)}
+
+
+def host_wall(run) -> tuple:
+    """``run()``'s host wall time up to a synchronize, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def spmd_rank_check(cell: str, p, m, region: ImageRegion) -> dict:
+    """The cell's kernel on the inputs its node receives for one rank's
+    tile ``region`` (pulled on the card, at the rank's shape): the wrapper
+    against its plain version at the kernel's tolerance, and the grid's
+    output over that tile against the plain version too."""
+    node = p.inputs_of(m)[0]
+    inputs = stripe_inputs(p, node, region)
+    kernel = SPMD_KERNELS[cell]
+    if kernel == "pansharpen":
+        xs_up, pan_i = inputs
+        got = ps_k.pansharpen_cuda(xs_up, pan_i, node.radius)
+        want = ps_k.pansharpen_plain(xs_up, pan_i.to(torch.float32), node.radius)
+    elif kernel == "glcm_features":
+        (x,) = inputs
+        args = (node.radius, node.offset, node.levels, node.vmin, node.vmax)
+        got = glcm_k.glcm_features_cuda(x, *args)
+        want = glcm_k.glcm_features_plain(x[..., 0].to(torch.float32).contiguous(), *args)
+    else:
+        (x,) = inputs
+        args = (node.hs, node.hr, node.n_iter)
+        got = ms_k.meanshift_cuda(x, *args)
+        want = ms_k.meanshift_plain(x.to(torch.float32).contiguous(), *args)
+    rs, cs = region.slices()
+    grid_tile = torch.from_numpy(np.ascontiguousarray(m.result[rs, cs])).to(want.device)
+    return dict(tile=str(region), inputs=[list(t.shape) for t in inputs],
+                kernel_vs_plain=compare_on_card(f"{kernel}:rank", got, want),
+                grid_vs_plain=compare_on_card(f"{kernel}:rank grid", grid_tile, want))
+
+
+def spmd_cell(cell: str, grid: tuple, pair, cpu_pair, card: str) -> dict:
+    """``pair`` streamed twice over ``TileSplitter(Hr, Wc)`` (the first run
+    captures), then run on ``grid`` ranks on the sources' device, on the
+    same ``PlanCache``, once timed and once under ``torch.profiler`` (a
+    second executor: a registry hit on the plan and the rank program).
+    Each grid run's output must equal the streaming run's bit for bit, its
+    persistent state within ``SPMD_STATE_RTOL``; nothing may be lowered or
+    captured after the warm-up, and the cell's kernel must launch once per
+    rank per run, no other kernel at all.  Then the output is held against
+    ``cpu_pair``'s CPU pull at a corner, in the interior and where four
+    ranks' tiles meet, and, where the cell runs a kernel, the planner's
+    canonical interior rank's tile against the kernel's plain version on
+    that rank's inputs (:func:`spmd_rank_check`)."""
+    p, m = pair
+    dev = p.sources()[0].device
+    n = grid[0] * grid[1]
+    info = p.info(m)
+    Hr, Wc, pad_r, pad_c = padded_tile_grid(info.rows, info.cols, *grid)
+    cache = PlanCache()
+    split = TileSplitter(Hr, Wc)
+    capture_s, _ = host_wall(lambda: execute(p, m, split, plan_cache=cache))
+    torch.cuda.reset_peak_memory_stats()
+    stream_s, sres = host_wall(lambda: execute(p, m, split, plan_cache=cache))
+    stream_peak = torch.cuda.max_memory_allocated()
+    streamed = m.result.copy()
+    warm = cache.stats_snapshot()
+    label = f"spmd {cell} {grid[0]}x{grid[1]}"
+    kernel = SPMD_KERNELS.get(cell)
+
+    def grid_run():
+        return ParallelExecutor(p, m, devices=[dev] * n, grid=grid, plan_cache=cache).run()
+
+    def check(res, counts, run):
+        if not np.array_equal(m.result, streamed):
+            raise AssertionError(f"{label} ({run}): the output differs from the streaming run")
+        now = cache.stats_snapshot()
+        if (now["lowers"], now["compiles"]) != (warm["lowers"], warm["compiles"]):
+            raise AssertionError(f"{label} ({run}): lowered or captured after the warm-up: "
+                                 f"{warm} -> {now}")
+        want = {k: (n if k == kernel else 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{label} ({run}): launches {counts}, expected {want}")
+        for name, st in sres.persistent_results.items():
+            for k, v in st.items():
+                np.testing.assert_allclose(res.persistent_results[name][k].cpu().numpy(),
+                                           v.cpu().numpy(), rtol=SPMD_STATE_RTOL,
+                                           err_msg=f"{label}: {name}.{k}")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    grid_s, res = host_wall(grid_run)
+    grid_peak = torch.cuda.max_memory_allocated()
+    counts = launches()
+    check(res, counts, "timed")
+    traced, traced_counts, profiled = traced_run(label, grid_run)
+    check(traced, traced_counts, "profiled")
+    plans = [e for e in cache.entries() if isinstance(e, _CompiledEntry)]
+    if not (plans and all(e.captured for e in plans)):
+        raise AssertionError(f"{label}: a plan ran without its CUDA graph")
+    t0 = time.perf_counter()
+    meet = ("rank corner", min(Hr, info.rows - CHECK // 2) - CHECK // 2,
+            min(Wc, info.cols - CHECK // 2) - CHECK // 2)
+    regions = check_regions(kernel or cell, m.result, cpu_pair, more=(meet,))
+    rank = None
+    if kernel:
+        nr, nc = grid
+        i, j = divmod((nr // 2) * nc + nc // 2, nc)  # the planner's canonical tile
+        rank = spmd_rank_check(cell, p, m, ImageRegion(
+            (i * Hr, j * Wc), (min(Hr, info.rows - i * Hr), min(Wc, info.cols - j * Wc))))
+    checks_s = time.perf_counter() - t0
+    sources = [dict(source=s.source.name, pitch=[s.pitch_r, s.pitch_c],
+                    halo=[s.halo_top, s.halo_bot, s.halo_left, s.halo_right])
+               for s in ParallelExecutor(p, m, devices=[dev] * n, grid=grid,
+                                         plan_cache=cache).plan.source_tiles]
+    rec = dict(cell=cell, grid=list(grid), ranks=n, devices=str(dev), tile=[Hr, Wc],
+               pad=[pad_r, pad_c], sources=sources,
+               stream_capture_s=capture_s, stream_s=stream_s, grid_s=grid_s,
+               grid_over_stream=grid_s / stream_s, profiled_wall_ms=profiled["wall_ms"],
+               idle_share=profiled["idle_share"], kernel_ms=profiled["kernel_ms"],
+               copy_ms=profiled["copy_ms"], device_busy_ms=profiled["device_busy_ms"],
+               host_launch_calls=profiled["host_launch_calls"], top=profiled["top"],
+               launches={k: v for k, v in counts.items() if v},
+               counters_after_warm_up=warm, counters=cache.stats_snapshot(),
+               new_lowers=0, new_captures=0, equals_streaming=True, regions=regions,
+               rank_vs_plain=rank, checks_s=checks_s,
+               stream_peak_allocated_bytes=stream_peak, grid_peak_allocated_bytes=grid_peak,
+               signatures=len(plans), card=card)
+    del plans, streamed, res, traced, sres
+    # the device memory the cell holds between runs (its graphs and their
+    # pool), then what is left once its registry is gone
+    rec["held_bytes"] = held_bytes()
+    del cache
+    rec["released_bytes"] = held_bytes()
+    return rec
+
+
+def spmd_halos(xs, card: str) -> dict:
+    """``halo_exchange_rows``/``_cols`` on card shards of XS (2 x 2, and
+    2 x 3 over its first 2046 columns) equal the same exchange on host
+    copies, with P3's XS halo (3) in every direction; the card's exchange
+    timed with CUDA events."""
+    full = xs.generate(xs.output_info().full_region)
+    out = {}
+    for grid in ((2, 2), (2, 3)):
+        nr, nc = grid
+        pr, pc = full.shape[0] // nr, (full.shape[1] // nc // 2) * 2
+
+        def exchange(shards):
+            return halo_exchange_cols(halo_exchange_rows(shards, 3, 3, grid), 3, 3, grid)
+
+        shards = [full[i * pr:(i + 1) * pr, j * pc:(j + 1) * pc]
+                  for i in range(nr) for j in range(nc)]
+        card_out = exchange(shards)
+        host_out = exchange([s.cpu() for s in shards])
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(card_out, host_out)):
+            raise AssertionError(f"spmd halos {grid}: the card's exchange differs from the CPU's")
+        out[f"{nr}x{nc}"] = dict(shard=[pr, pc, full.shape[2]], halo=3, equals_cpu=True,
+                                 ms=cuda_ms(lambda: exchange(shards), reps=5), card=card)
+    return out
+
+
+def spmd_dag_runs(pool_chain: dict, card: str) -> dict:
+    """``chain_stages`` with its pansharpen stage on ``SPMD_DAG_RANKS``
+    SPMD ranks (an (n, 1) strip grid on the card), barrier and pipelined at
+    ``DAG_CAPACITY``: the stage files must equal each other and the pool
+    chain's (step 9) bit for bit, and compile what barrier mode compiles."""
+    def chain():
+        stages = TP.chain_stages(**DAG_KW, device="cuda")
+        stages[0] = dataclasses.replace(stages[0], executor="spmd", n_workers=SPMD_DAG_RANKS,
+                                        splitter=None)
+        return stages
+
+    runs = {"barrier": dag_run("spmd barrier", chain(), False, DAG_CAPACITY, DAG_KERNELS)}
+    runs["pipelined"] = dag_run("spmd pipelined", chain(), True, DAG_CAPACITY, DAG_KERNELS)
+    for label, rec in runs.items():
+        if rec["digests"] != pool_chain["digests"]:
+            raise AssertionError(f"spmd dag {label}: stage files differ from the pool chain's")
+        if rec["compiles_per_stage"] != runs["barrier"]["compiles_per_stage"]:
+            raise AssertionError(f"spmd dag {label}: compiles per stage "
+                                 f"{rec['compiles_per_stage']} != barrier mode's")
+        if rec["regions"]["pansharpen"] != SPMD_DAG_RANKS:
+            raise AssertionError(f"spmd dag {label}: {rec['regions']} regions")
+        rec.update(equals_barrier=True, equals_pool_chain=True, card=card,
+                   pool_chain_wall_s=pool_chain["wall_s"])
+        print(json.dumps({"spmd dag": label, **rec}), flush=True)
+    return runs
+
+
+def spmd_runs(xs, pan, xs_np, pan_np, pool_chain: dict) -> dict:
+    """The ``spmd`` phase: every grid of ``SPMD_CELLS``, the halo exchange
+    on the card and the chain with an SPMD stage."""
+    card = card_line()
+    t0 = time.perf_counter()
+    graphs = spmd_graphs(xs, pan)
+    cpu_graphs = spmd_graphs(ArraySource(xs_np, device="cpu"), ArraySource(pan_np, device="cpu"))
+    cells = {}
+    for cell, grid in SPMD_CELLS:
+        rec = spmd_cell(cell, grid, graphs[cell](), cpu_graphs[cell](), card)
+        print(json.dumps({"spmd": f"{cell} {grid[0]}x{grid[1]}", **rec}), flush=True)
+        cells[f"{cell} {grid[0]}x{grid[1]}"] = rec
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    halos = spmd_halos(xs, card)
+    print(json.dumps({"spmd": "halos", **halos}), flush=True)
+    dag = spmd_dag_runs(pool_chain, card)
+    phase_s = time.perf_counter() - t0
+    print(json.dumps({"spmd": "summary", "phase_s": phase_s, "cells": len(cells),
+                      "card": card}), flush=True)
+    return dict(cells=cells, halos=halos, dag=dag, phase_s=phase_s)
+
+
 #: the main-path cells whose launches each kernel's row adds up, where
 #: more than the cell it was timed on: B1 and B2 also run in the tiled
-#: phase, B1-B3 in both tile-serving storms
-ROW_CELLS = {"pansharpen": ("P3", "tiled P3", "tiles batched", "tiles unbatched"),
-             "glcm_features": ("P2", "tiled P2", "tiles batched", "tiles unbatched"),
-             "meanshift": ("P5", "tiles batched", "tiles unbatched")}
+#: phase, B1-B3 in both tile-serving storms and on the SPMD grids
+ROW_CELLS = {"pansharpen": ("P3", "tiled P3", "tiles batched", "tiles unbatched",
+                            "spmd P3 2x2", "spmd P3 8x1"),
+             "glcm_features": ("P2", "tiled P2", "tiles batched", "tiles unbatched",
+                               "spmd P2 2x2", "spmd P2 2x3"),
+             "meanshift": ("P5", "tiles batched", "tiles unbatched", "spmd P5 2x2",
+                           "spmd P5 2x3")}
 
 
 def kernel_line(rows, launch_counts) -> tuple:
@@ -2157,6 +2435,14 @@ def main(argv: list) -> int:
     xs_np, pan_np = xs.read_region(), pan.read_region()
 
     runs = {}
+    phases = {"build": build_s}  # seconds per phase, printed before the kernels line
+    mark = [time.perf_counter()]
+
+    def phase(name: str) -> None:
+        now = time.perf_counter()
+        phases[name] = now - mark[0]
+        mark[0] = now
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         runs["P3"] = run_p3(xs, pan, xs_np, pan_np, Path(tmp))
     runs["P2"] = run_memory("P2", "glcm_features", pan, pan_np)
@@ -2167,18 +2453,30 @@ def main(argv: list) -> int:
         print(json.dumps({"pipeline": name, **r}), flush=True)
         if r["finite_share"] != 1.0:
             raise AssertionError(f"{name}: non-finite output pixels")
+    phase("pipelines")
     rows, stages = kernel_rows(xs, pan)
     print(json.dumps({"stripe_stages_ms": stages}), flush=True)
+    phase("kernel rows")
     plan_runs(xs, pan)
+    phase("plan")
     _, fused_checks = fused_runs(xs, pan)
+    phase("fused")
     executor_runs(xs, pan)
-    dag_runs(xs_np, pan_np)
+    phase("executor")
+    dag = dag_runs(xs_np, pan_np)
+    phase("dag")
     tiled = tiled_runs(xs, pan, xs_np, pan_np, runs["P3"]["pixels_sha256"])
     runs["tiled P3"] = dict(launches=tiled["P3"]["path_run"]["launches"])
     runs["tiled P2"] = dict(launches=tiled["P2"]["launches"])
+    phase("tiled")
     serving = tile_runs()
     for mode in ("batched", "unbatched"):
         runs[f"tiles {mode}"] = dict(launches=serving[mode]["launches"])
+    phase("tiles")
+    spmd = spmd_runs(xs, pan, xs_np, pan_np, dag["barrier"])
+    for key, rec in spmd["cells"].items():
+        runs[f"spmd {key}"] = dict(launches=rec["launches"])
+    phase("spmd")
     del xs, pan
     release_plans()
 
@@ -2193,6 +2491,7 @@ def main(argv: list) -> int:
             raise AssertionError(f"{arch}: launches {record['launches']}, expected "
                                  f"{record['kernel']} once per layer ({n_layers}) and no other")
     rows += lm_kernel_rows(captured)
+    phase("serve")
 
     launch_counts = {name: {k: r["launches"].get(k, 0) for k in KERNELS}
                      for name, r in runs.items()}
@@ -2207,6 +2506,7 @@ def main(argv: list) -> int:
     kernels, checks = kernel_line(rows, launch_counts)
     checks.update(fused_checks)
     print(json.dumps({"kernel_checks": checks}), flush=True)
+    print(json.dumps({"phases_s": phases, "total_s": sum(phases.values())}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

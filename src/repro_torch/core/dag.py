@@ -320,6 +320,24 @@ class EdgeQueue:
                 self._wait_demands.remove(demand)
                 self._cv.notify_all()
 
+    def wait_complete(self, timeout: Optional[float] = None) -> None:
+        """Block until the producer stage completed (stage-granularity
+        consumers: an SPMD stage reads its whole input up front).  Raises
+        :class:`UpstreamFailed` or :class:`PipelineCancelled` instead of
+        hanging on a dead producer."""
+        with self._cv:
+            waited = 0.0
+            while not self._producer_done:
+                self._raise_if_failed_locked()
+                self._cv.wait(_POLL_S)
+                waited += _POLL_S
+                if timeout is not None and waited >= timeout:
+                    raise TimeoutError(
+                        f"edge {self.producer!r}→{self.consumer!r}: producer "
+                        f"did not complete within {timeout}s"
+                    )
+            self._raise_if_failed_locked()
+
     @contextlib.contextmanager
     def demand_whole(self):
         """While the block runs, the consumer demands every row of the

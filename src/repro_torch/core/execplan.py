@@ -281,13 +281,18 @@ class _CaptureGate:
 
 class _DeviceGraphs:
     """The CUDA graphs of one device: the memory pool every capture on it
-    allocates from, the lock that serializes replays, and the gate that
-    keeps every other thread's device work out of a capture."""
+    allocates from, the stream captures run on, the lock that serializes
+    replays, and the gate that keeps every other thread's device work out
+    of a capture."""
 
-    def __init__(self):
+    def __init__(self, index: int):
         self.lock = threading.Lock()
         self.gate = _CaptureGate()
         self.pool = torch.cuda.graph_pool_handle()
+        # torch.cuda.graph's default capture stream is one stream of the
+        # device current at the process's first capture: a capture on
+        # another GPU needs a stream of its own
+        self.capture_stream = torch.cuda.Stream(torch.device("cuda", index))
 
 
 _GRAPHS: Dict[int, _DeviceGraphs] = {}
@@ -298,7 +303,7 @@ def _device_graphs(dev: torch.device) -> _DeviceGraphs:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     with _GRAPHS_LOCK:
         if index not in _GRAPHS:
-            _GRAPHS[index] = _DeviceGraphs()
+            _GRAPHS[index] = _DeviceGraphs(index)
         return _GRAPHS[index]
 
 
@@ -336,7 +341,7 @@ def _capture_graph(fn: Callable, dev: torch.device, pool, name: str):
         # capture_error_mode "global" (the default): the device's gate
         # keeps every other thread's device work out of the capture, so
         # a stray synchronizing call anywhere fails loudly
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool, stream=_device_graphs(dev).capture_stream):
             result = fn()
     except Exception as e:
         raise RuntimeError(
@@ -366,7 +371,8 @@ class _CompiledEntry:
     Python, which runs at capture and not on replay, so the entry records
     the counts its capture added and adds them again on every replay;
     ``pool_bytes`` is the device memory the capture added to the shared
-    pool (0 where it fitted in what earlier captures left free)."""
+    pool (0 where it fitted in what earlier captures left free).  A graph
+    is bound to the device it was captured on (``capture_device``)."""
 
     def __init__(self, canonical_fn: Callable, stats: CacheStats, name: str = "plan"):
         self.canonical_fn = canonical_fn
@@ -375,6 +381,7 @@ class _CompiledEntry:
         self._lock = threading.Lock()
         self._primed = False
         self._graph = None
+        self.capture_device: Optional[torch.device] = None
         self.pool_bytes = 0
         self.launches_per_replay: Dict[str, int] = {}
 
@@ -395,15 +402,19 @@ class _CompiledEntry:
         GPU), every call on a GPU replays."""
         if device.type == "cuda":
             graphs = _device_graphs(device)
-            if self._graph is None:
-                with graphs.gate.exclusive():  # no other thread's device work
-                    if self._graph is None:
-                        self._capture(*args, graphs.pool)
-                        self._stats.compiles += 1
-                        self._primed = True
+            # the graph captures and replays on its own device, whatever
+            # device the calling thread has current
+            with torch.cuda.device(device):
+                if self._graph is None:
+                    with graphs.gate.exclusive():  # no other thread's device work
+                        if self._graph is None:
+                            self._capture(*args, graphs.pool)
+                            self.capture_device = device
+                            self._stats.compiles += 1
+                            self._primed = True
+                        return self._replay_locked(*args)
+                with graphs.gate.shared(), graphs.lock:
                     return self._replay_locked(*args)
-            with graphs.gate.shared(), graphs.lock:
-                return self._replay_locked(*args)
         if not self._primed:
             with self._lock:
                 if not self._primed:

@@ -54,10 +54,17 @@ No thread blocks on an edge while it holds a device's capture gate
 gate outside it, and copies to the host hold it only for the copy, so a
 stage can capture while another stage's workers wait on its rows.
 
+A stage with ``executor="spmd"`` runs :class:`~repro_torch.core.parallel.
+ParallelExecutor` over ``max(1, n_workers)`` ranks as an ``(n, 1)`` strip
+grid, placed round robin over the visible devices of its sources' type.
+It reads its whole input up front, so in pipelined mode it gates at stage
+granularity (it waits for every inbound edge to complete, and no
+backpressure is armed toward it); as a producer it commits per strip
+through its writer's commit hook, like any pool stage.
+
 An orchestrator that made its workdir (no ``workdir=``) removes it in
 :meth:`cleanup` and on leaving its context; a caller's workdir is left
-alone.  Counterpart of ``repro.core.orchestrator``; its ``"spmd"`` stages
-wait for the multi-GPU executor (ROADMAP A.14).
+alone.  Counterpart of ``repro.core.orchestrator``.
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ from repro_torch.core.dag import (
     UpstreamFailed,
 )
 from repro_torch.core.execplan import CacheStats, PlanCache, global_plan_cache
+from repro_torch.core.parallel import ParallelExecutor, place_ranks
 from repro_torch.core.pipeline import Pipeline
 from repro_torch.core.process_object import Mapper
 from repro_torch.core.splitting import Splitter, StripeSplitter
@@ -99,8 +107,9 @@ class Stage:
     regions (``"work_stealing"``, ``"static"`` or ``"lpt"``); a pipelined
     stage hands them out in row order instead
     (:func:`~repro_torch.core.streaming.run_pool`).  ``executor`` is
-    ``"pool"``; ``"spmd"`` (the multi-GPU grid) is not ported yet
-    (ROADMAP A.14) and raises when the orchestrator is made."""
+    ``"pool"`` or ``"spmd"`` (the tile-grid executor over ``n_workers``
+    ranks, which takes none of the pool-only options ``splitter``,
+    ``scheduler`` and ``use_jit=False``)."""
 
     name: str
     build: Callable[[Dict[str, str], str], tuple]
@@ -184,13 +193,18 @@ class Orchestrator:
             raise ValueError("stage names must be unique")
         known = set()
         for s in self.stages:  # declaration order must be topological
-            if s.executor == "spmd":
-                raise NotImplementedError(
-                    f"stage {s.name}: the multi-GPU 'spmd' executor is not "
-                    "ported yet (ROADMAP A.14)"
-                )
-            if s.executor != "pool":
+            if s.executor not in ("pool", "spmd"):
                 raise ValueError(f"stage {s.name}: unknown executor {s.executor}")
+            if s.executor == "spmd" and (
+                s.splitter is not None
+                or not s.use_jit
+                or s.scheduler != "work_stealing"
+            ):
+                raise ValueError(
+                    f"stage {s.name}: splitter/scheduler/use_jit=False are "
+                    "pool-only options — the spmd engine derives strip "
+                    "geometry from the device count and always runs jitted"
+                )
             missing = [i for i in s.inputs if i not in known]
             if missing:
                 raise ValueError(f"stage {s.name}: unknown inputs {missing}")
@@ -245,6 +259,10 @@ class Orchestrator:
         region_gate: Optional[RegionGate] = None,
         in_order: bool = False,
     ):
+        if stage.executor == "spmd":
+            devices = place_ranks(max(1, stage.n_workers), pipeline.sources()[0].device)
+            return ParallelExecutor(pipeline, mapper, devices=devices,
+                                    plan_cache=self.plan_cache).run()
         workers = n_workers if n_workers is not None else stage.n_workers
         splitter = stage.splitter or StripeSplitter(n_splits=max(4, stage.n_workers * 4))
         # the stage's workers share one region queue (or their schedule's
@@ -293,10 +311,14 @@ class Orchestrator:
             for s in self.stages
             for i in s.inputs
         }
-        # arm backpressure now: producers never run more than
-        # queue_capacity strips ahead, even while a consumer builds
-        for e in edges.values():
-            e.consumer_started()
+        # arm backpressure now for region-granular (pool) consumers:
+        # producers never run more than queue_capacity strips ahead, even
+        # while a consumer builds.  SPMD consumers gate at stage
+        # granularity, so their edges stay unthrottled.
+        for s in self.stages:
+            if s.executor == "pool":
+                for i in s.inputs:
+                    edges[(i, s.name)].consumer_started()
         paths = {s.name: str(self.workdir / f"{s.name}.rtif") for s in self.stages}
         results: Dict[str, StageResult] = {}
         errors: Dict[str, BaseException] = {}
@@ -328,7 +350,9 @@ class Orchestrator:
                 # the consumer's build read the RTIF header
                 for e in inbound.values():
                     e.wait_open()
-                acquired = budget.acquire(stage.n_workers, waiting=lambda: demand_whole(inbound))
+                # an SPMD stage's ranks live on devices: it takes one worker
+                acquired = budget.acquire(stage.n_workers if stage.executor == "pool" else 1,
+                                          waiting=lambda: demand_whole(inbound))
                 pipeline, mapper = stage.build(
                     {i: paths[i] for i in stage.inputs}, paths[stage.name]
                 )
@@ -341,14 +365,22 @@ class Orchestrator:
                             f"bind_commit_sink); got {type(mapper).__name__}"
                         )
                     mapper.bind_commit_sink(fanout)
-                gate = RegionGate({paths[i]: e for i, e in inbound.items()}) if inbound else None
                 t0 = time.perf_counter()
-                res = self._run_stage(
-                    stage, pipeline, mapper, n_workers=acquired, region_gate=gate,
-                    # producers offer strips in their consumers' row order, so
-                    # backpressure follows the commit frontier
-                    in_order=bool(outbound),
-                )
+                if stage.executor == "spmd":
+                    # the SPMD executor reads its whole input up front:
+                    # stage-granularity gating
+                    for e in inbound.values():
+                        e.wait_complete()
+                    res = self._run_stage(stage, pipeline, mapper)
+                else:
+                    gate = (RegionGate({paths[i]: e for i, e in inbound.items()})
+                            if inbound else None)
+                    res = self._run_stage(
+                        stage, pipeline, mapper, n_workers=acquired, region_gate=gate,
+                        # producers offer strips in their consumers' row
+                        # order, so backpressure follows the commit frontier
+                        in_order=bool(outbound),
+                    )
                 dt = time.perf_counter() - t0
                 for e in inbound.values():
                     e.consumer_finished()

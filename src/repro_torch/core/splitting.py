@@ -3,8 +3,9 @@
 The mapper chooses how the output image is divided into regions: striped or
 tiled with fixed dimensions, or automatically from a memory budget and the
 number of workers.  Every splitter must tile the domain *exactly* (cover
-every pixel once).  Counterpart of ``repro.core.splitting``; the
-padded-grid helpers come with the multi-GPU grid.
+every pixel once).  The padded-grid helpers give the SPMD executor's
+virtual tile geometry (:mod:`repro_torch.core.parallel`).  Counterpart of
+``repro.core.splitting``.
 """
 from __future__ import annotations
 
@@ -73,12 +74,71 @@ class RowCoverage:
         return f"RowCoverage({self._ivals})"
 
 
+def padded_tile_grid(
+    rows: int, cols: int, nr: int, nc: int
+) -> tuple[int, int, int, int]:
+    """Uniform SPMD tile geometry for a ``rows × cols`` output over an
+    ``nr × nc`` rank grid: ``(Hr, Wc, pad_rows, pad_cols)`` with
+    ``Hr = ceil(rows / nr)``, ``Wc = ceil(cols / nc)`` and the pads the
+    trailing *virtual* rows/cols past the image (``nr·Hr − rows`` and
+    ``nc·Wc − cols``).
+
+    Every rank owns one ``Hr × Wc`` tile of the virtually padded image, the
+    padded global input is edge-replicated over the pad rows and pad
+    columns, and the executor crops/masks the pad before the write stage.
+    The 1-D strip path is exactly the ``nc = 1`` column of this grid."""
+    if rows <= 0 or cols <= 0 or nr <= 0 or nc <= 0:
+        raise ValueError("rows, cols, nr and nc must be positive")
+    Hr = math.ceil(rows / nr)
+    Wc = math.ceil(cols / nc)
+    return Hr, Wc, nr * Hr - rows, nc * Wc - cols
+
+
+def virtual_tile_regions(
+    rows: int, cols: int, nr: int, nc: int
+) -> List[ImageRegion]:
+    """The ``nr × nc`` uniform virtual tiles of a ``rows × cols`` output in
+    row-major order: tile ``(i, j)`` is ``[i·Hr, (i+1)·Hr) × [j·Wc,
+    (j+1)·Wc)``; edge tiles may spill past the image in either axis (see
+    :func:`padded_tile_grid` for the pad sizes).  Shared by the SPMD tile
+    prober and the virtual describe pass so both see identical per-rank
+    geometry."""
+    Hr, Wc, _, _ = padded_tile_grid(rows, cols, nr, nc)
+    return [
+        ImageRegion((i * Hr, j * Wc), (Hr, Wc))
+        for i in range(nr)
+        for j in range(nc)
+    ]
+
+
 def clamped_tile_spans(lo: int, hi: int, step: int) -> List[tuple[int, int]]:
     """``(start, size)`` spans of width ``step`` covering ``[lo, hi)``
-    exactly, the last span clamped to the boundary."""
+    exactly, the last span clamped to the boundary.  The 1-axis clamping
+    primitive behind :class:`StripeSplitter` / :class:`TileSplitter` (real,
+    in-image tiles); contrast :func:`virtual_tile_regions`, whose tiles
+    never clamp."""
     if step <= 0:
         raise ValueError("step must be positive")
     return [(a, min(step, hi - a)) for a in range(lo, hi, step)]
+
+
+def padded_strip_rows(rows: int, n_workers: int) -> tuple[int, int]:
+    """Uniform SPMD strip height and virtual row padding for ``rows`` output
+    rows over ``n_workers`` strips: ``(H, pad)`` with ``H = ceil(rows / n)``
+    and ``pad = n·H − rows``.  The ``nc = 1`` case of
+    :func:`padded_tile_grid`."""
+    Hr, _, pad_rows, _ = padded_tile_grid(rows, 1, n_workers, 1)
+    return Hr, pad_rows
+
+
+def virtual_strip_regions(
+    rows: int, cols: int, n_workers: int
+) -> List[ImageRegion]:
+    """The ``n_workers`` uniform virtual strips of a ``rows × cols`` output:
+    strip ``k`` is ``[k·H, (k+1)·H) × [0, cols)``; the last strip(s) may
+    spill past ``rows``.  The ``nc = 1`` case of
+    :func:`virtual_tile_regions`."""
+    return virtual_tile_regions(rows, cols, n_workers, 1)
 
 
 class StripeSplitter(Splitter):

@@ -23,6 +23,7 @@ import numpy as np
 from repro_torch.core import (
     ImageRegion,
     Mapper,
+    ParallelExecutor,
     Pipeline,
     Source,
     Stage,
@@ -32,6 +33,7 @@ from repro_torch.core import (
     resolve_device,
     run_pool,
 )
+from repro_torch.core.parallel import place_ranks
 from repro_torch.filters import (
     Composite,
     Convert,
@@ -370,6 +372,7 @@ def run_pipeline(
     executor: str = "streaming",
     splitter=None,
     n_workers=None,
+    grid=None,
     keep_outputs: bool = False,
     mapper_factory=None,
     sink=None,
@@ -397,8 +400,12 @@ def run_pipeline(
     ``executor="streaming"`` runs :class:`~repro_torch.core.StreamingExecutor`
     (source prefetch and write-behind); ``executor="pool"`` runs
     :func:`~repro_torch.core.run_pool` with ``n_workers`` threads (one by
-    default).  The multi-GPU ``"spmd"`` executor is not ported yet
-    (ROADMAP A.14).
+    default); ``executor="spmd"`` runs
+    :class:`~repro_torch.core.ParallelExecutor` over ``grid=(nr, nc)``
+    ranks (else ``(n_workers, 1)``, else one rank per visible device of
+    ``device``'s type), placed round robin over those devices: on a one-GPU
+    host every rank shares ``cuda:0``.  ``splitter`` is ignored there (the
+    grid is the split).
 
     The run goes through the plan layer: ``plan_cache`` defaults to the
     process-wide registry (:func:`~repro_torch.core.global_plan_cache`);
@@ -408,9 +415,7 @@ def run_pipeline(
 
     Returns ``(StreamResult, mapper)``.
     """
-    if executor == "spmd":
-        raise NotImplementedError("the multi-GPU 'spmd' executor is not ported yet (ROADMAP A.14)")
-    if executor not in ("streaming", "pool"):
+    if executor not in ("streaming", "pool", "spmd"):
         raise ValueError(f"unknown executor {executor!r}")
     dev = resolve_device(device)
     opened = {}  # position -> the source this run opened from a path or array
@@ -442,6 +447,11 @@ def run_pipeline(
         if executor == "pool":
             res = run_pool(pipeline, mapper, splitter, n_workers=n_workers or 1, plan_cache=cache,
                            use_jit=use_jit, keep_outputs=keep_outputs)
+        elif executor == "spmd":
+            take = grid[0] * grid[1] if grid is not None else n_workers
+            devices = place_ranks(take, dev) if take else None
+            res = ParallelExecutor(pipeline, mapper, devices=devices, plan_cache=cache,
+                                   grid=grid).run(keep_outputs=keep_outputs)
         else:
             res = StreamingExecutor(pipeline, mapper, splitter, plan_cache=cache,
                                     use_jit=use_jit).run(keep_outputs=keep_outputs)

@@ -9,9 +9,11 @@ a capture while other threads read), the stage DAG's (the chain
 pipelined against barrier mode, a capture while another stage waits on
 its rows, ROADMAP C.3's DAG), the tiled IO's (tiled sources feeding B1
 and B2, catalogs of tiled scenes, a capture while the read-ahead thread
-fetches) and tile serving's (batched graphs against per-tile replays,
+fetches), tile serving's (batched graphs against per-tile replays,
 captures per signature and bucket, prefetch and dispatch replaying at
-once) are at the end.  On a GPU host:
+once) and the SPMD executor's (grids of ranks on ``cuda:0`` against the
+streaming run, halo exchange against the CPU, an ``"spmd"`` stage in the
+chain) are at the end.  On a GPU host:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -26,12 +28,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as TC  # noqa: E402
+from repro_torch import core as TC_core  # noqa: E402
 from repro_torch import filters as TF  # noqa: E402
 from repro_torch import pipelines as TP  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     ImageInfo, ImageRegion, Orchestrator, PlanCache, Pipeline, Stage, StripeSplitter,
     TileSplitter, execute, global_plan_cache, run_pool,
 )
+from repro_torch.core.execplan import _CompiledEntry  # noqa: E402
 from repro_torch.kernels import LAUNCHERS  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
 from repro_torch.kernels import glcm as T_glcm  # noqa: E402
@@ -1151,6 +1155,121 @@ def test_prefetcher_and_dispatcher_replay_concurrently_without_a_capture(cuda):
     for r, tile in results.items():
         e = server._entries[(r.pipeline, r.zoom)]
         np.testing.assert_array_equal(tile, e.puller.pull_one(e.grid.region(r.x, r.y)))
+
+
+# --------------------------------------------------------------------------
+# the tile-grid SPMD executor on the card: ranks sharing cuda:0
+# --------------------------------------------------------------------------
+SPMD_KERNEL = {"P2": "glcm_features", "P3": "pansharpen", "P5": "meanshift"}
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (2, 3), (4, 1)])
+@pytest.mark.parametrize("name", ["P2", "P3", "P5"])
+def test_spmd_grid_on_cuda_equals_streaming(cuda, name, grid):
+    """``n`` ranks on ``[cuda] * n`` after a streaming run on the grid's
+    tile geometry: the output equals the streaming run bit for bit, nothing
+    is lowered or captured, every rank replays the streaming run's graph
+    (its kernel launches once per rank), and the output and the counters
+    are the CPU grid run's (at the card-against-CPU tolerance of
+    ``test_pipelines_on_cuda_match_cpu``)."""
+    n = grid[0] * grid[1]
+    p, m = _graphs_on(name, cuda)
+    info = p.info(m)
+    Hr, Wc, _, _ = TC_core.padded_tile_grid(info.rows, info.cols, *grid)
+    cache = PlanCache()
+    execute(p, m, TileSplitter(Hr, Wc), prefetch=0, plan_cache=cache)
+    streamed = m.result.copy()
+    warm = cache.stats_snapshot()
+    kernel = LAUNCHERS[SPMD_KERNEL[name]]
+    before = {k: fn.launches for k, fn in LAUNCHERS.items()}
+    res = TC_core.ParallelExecutor(p, m, devices=[cuda] * n, grid=grid, plan_cache=cache).run()
+    after = {k: fn.launches for k, fn in LAUNCHERS.items()}
+    assert np.array_equal(m.result, streamed)
+    assert res.regions_processed == n
+    snap = cache.stats_snapshot()
+    assert (snap["lowers"], snap["compiles"]) == (warm["lowers"], warm["compiles"])
+    plans = [e for e in cache.entries() if isinstance(e, _CompiledEntry)]
+    assert plans and all(e.captured for e in plans)
+    assert {k: after[k] - before[k] for k in before} == {
+        k: (n if fn is kernel else 0) for k, fn in LAUNCHERS.items()}
+    pc, mc = _graphs_on(name, "cpu")
+    cpu_cache = PlanCache()
+    execute(pc, mc, TileSplitter(Hr, Wc), prefetch=0, plan_cache=cpu_cache)
+    TC_core.ParallelExecutor(pc, mc, devices=["cpu"] * n, grid=grid, plan_cache=cpu_cache).run()
+    assert snap == cpu_cache.stats_snapshot()
+    assert m.result.dtype == mc.result.dtype
+    np.testing.assert_allclose(m.result, mc.result, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("grid", [(2, 3), (8, 1), (1, 4)])
+def test_halo_exchange_on_cuda_equals_cpu(cuda, grid):
+    nr, nc = grid
+    shards = [torch.from_numpy(RNG.integers(0, 4096, (6, 5, 3)).astype(np.int32))
+              for _ in range(nr * nc)]
+    on_cpu = TC_core.halo_exchange_cols(TC_core.halo_exchange_rows(shards, 3, 2, grid), 1, 4,
+                                        grid)
+    on_card = TC_core.halo_exchange_cols(
+        TC_core.halo_exchange_rows([s.to(cuda) for s in shards], 3, 2, grid), 1, 4, grid)
+    for c, g in zip(on_cpu, on_card):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+
+
+def test_spmd_ranks_spread_over_gpus_equal_streaming(cuda):
+    """On a host with several GPUs the 2 x 2 ranks spread over them: each
+    other GPU captures the closure once on its own device (a graph is
+    bound to its device), held in the registry beside the shared entry,
+    and every run equals the streaming run on ``cuda:0`` with the state
+    folded there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more GPUs")
+    gpus = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    spread = [gpus[k % len(gpus)] for k in range(4)]
+    others = len(set(spread) - {gpus[0]})
+    p, m = _graphs_on("P5", gpus[0])
+    info = p.info(m)
+    Hr, Wc, _, _ = TC_core.padded_tile_grid(info.rows, info.cols, 2, 2)
+    cache = PlanCache()
+    execute(p, m, TileSplitter(Hr, Wc), prefetch=0, plan_cache=cache)
+    streamed = m.result.copy()
+    compiles = cache.stats.compiles
+    entries = len(cache.entries())
+    for run in range(2):
+        before = LAUNCHERS["meanshift"].launches
+        TC_core.ParallelExecutor(p, m, devices=spread, grid=(2, 2), plan_cache=cache).run()
+        assert np.array_equal(m.result, streamed)
+        assert cache.stats.compiles == compiles + others
+        assert LAUNCHERS["meanshift"].launches - before == 4 + (others if run == 0 else 0)
+        plans = [e for e in cache.entries() if isinstance(e, _CompiledEntry)]
+        assert all(e.captured for e in plans)
+        assert sum(e.capture_device != gpus[0] for e in plans) == others
+        assert len(cache.entries()) == entries + 1 + others  # the rank program too
+    q = Pipeline()
+    s = q.add(ArraySource(RNG.integers(1, 4096, (40, 30, 3)).astype(np.uint16), device=gpus[0]))
+    mq = q.add(MemoryMapper(), [q.add(TF.BandStatistics(3), [s])])
+    want = execute(q, mq, TileSplitter(20, 15), plan_cache=PlanCache()).persistent_results
+    got = TC_core.ParallelExecutor(q, mq, devices=spread, grid=(2, 2)).run().persistent_results
+    for k, v in want["BandStatistics"].items():
+        g = got["BandStatistics"][k]
+        assert g.device == gpus[0]
+        torch.testing.assert_close(g, v, rtol=1e-4, atol=0)
+
+
+def test_spmd_stage_on_cuda_pipelined_equals_barrier(cuda):
+    """The chain with its pansharpen stage on 2 ranks of the card: the
+    pipelined files equal barrier mode's."""
+    def stages():
+        chain = TP.chain_stages(48, 32, n_workers=2, n_splits=4, device=cuda)
+        chain[0] = dataclasses.replace(chain[0], executor="spmd", splitter=None)
+        return chain
+
+    files = []
+    for pipelined in (False, True):
+        with Orchestrator(stages(), plan_cache=PlanCache(), pipelined=pipelined) as orch:
+            res = orch.run()
+            files.append({k: rio.read_region(v.path) for k, v in res.items()})
+    assert res["pansharpen"].regions == 2
+    for k in files[0]:
+        assert np.array_equal(files[0][k], files[1][k]), k
 
 
 def test_a_synchronizing_filter_still_fails_its_capture(cuda):

@@ -449,8 +449,17 @@ def test_orchestrator_validates_its_arguments():
 
 
 def test_spmd_stage_raises_naming_a14():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        TC.Orchestrator([TC.Stage("a", lambda i, o: None, executor="spmd")])
+    """The tile-grid executor is ported (A.14): an ``"spmd"`` stage runs,
+    raises nothing, and writes the file its pool stage writes."""
+    pool = _stage("t", "a", [], KINDS["smooth"])
+    spmd = TC.Stage("a", pool.build, n_workers=3, executor="spmd")
+    files = []
+    for stage in (pool, spmd):
+        with TC.Orchestrator([stage], plan_cache=TC.PlanCache()) as orch:
+            res = run_watchdogged(orch)
+            files.append(tio.read_region(res["a"].path))
+    assert res["a"].regions == 3
+    np.testing.assert_array_equal(files[1], files[0])
 
 
 def test_pipelined_producer_needs_a_commit_capable_writer():

@@ -684,8 +684,11 @@ def test_run_pipeline_pool_matches_the_reference(n_workers):
 
 
 def test_run_pipeline_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        TP.run_pipeline("P6", _img(8, 8), executor="spmd", device="cpu")
+    # A.14 is ported: the spmd executor runs and equals the streaming run
+    spmd, spm = TP.run_pipeline("P6", _img(8, 8), executor="spmd", grid=(2, 2), device="cpu")
+    _, stm = TP.run_pipeline("P6", _img(8, 8), device="cpu")
+    assert spmd.regions_processed == 4
+    np.testing.assert_array_equal(spm.result, stm.result)
     # ROADMAP C.12: the pool without n_workers runs one worker, as the
     # reference does, and equals the streaming run
     pooled, pm = TP.run_pipeline("P6", _img(8, 8), executor="pool", device="cpu")
