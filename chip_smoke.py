@@ -23,18 +23,26 @@
    ``BandStatistics``, its state held against float64 numpy); for each,
    one interior stripe's stages (input pull, ``generate``, device-to-host
    copy, in CUDA events) and a ``torch.profiler`` run (device idle share);
-4. serves olmo-1b, gemma-2b and mamba2-780m at their published widths and
-   depths from ``repro_torch.serve.ServeEngine`` on ``cuda`` (random
-   bfloat16 weights from a seed): 4 requests of 1024 prompt tokens, 32
-   greedy tokens each, ``max_seq`` 1056, with the launch counts set to 0
-   just before the ``generate`` call and read just after (B4 once per olmo
-   and gemma layer, B5 once per mamba layer); holds each model against the
-   port's CPU run of the same weights on one 256-token request
-   (last-position logits, greedy tokens), and profiles one prefill and 8
-   decode steps (``torch.profiler``);
+4. serves olmo-1b, gemma-2b, mamba2-780m and gemma3-12b at their published
+   widths and depths from ``repro_torch.serve.ServeEngine`` on ``cuda``
+   (random bfloat16 weights from a seed): 4 requests of 1024 prompt
+   tokens, 32 greedy tokens each, ``max_seq`` 1056; gemma3-12b (window
+   1024 on 40 of its 48 layers, ring caches in decode) takes 4 requests of
+   1536 tokens (the window bites in prefill and the rings wrap) and 4 of
+   512 (the rings part empty, ROADMAP C.14's case), 32 greedy tokens each,
+   ``max_seq`` 1568.  The launch counts are set to 0 just before each
+   ``generate`` call and read just after (B4 once per olmo, gemma and
+   gemma3 layer in the prefill and never in a decode step, B5 once per
+   mamba layer); each model is held against the port's CPU run of the same
+   weights on one 256-token request (gemma3-12b: its first 6 layers, 5
+   local and 1 global, at full width, on one request of 1100 tokens and
+   one of 300, 8 steps each): last-position logits, greedy tokens; one
+   prefill and 8 decode steps are profiled (``torch.profiler``), and the
+   peak memory of the main path is read;
 5. holds every kernel against its plain PyTorch version on the card, B1-B3
    on the inputs of one stripe of their run and B4/B5 on the inputs of layer
-   0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape; B5's
+   0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape, and at
+   gemma3-12b's with its window (layer 0) and without (layer 5); B5's
    outputs over each cell's largest value, and a one-TF32-pass control must
    fail that check), and times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
    events.  B2 must equal its plain version bit for bit, on the P2 stripe
@@ -269,10 +277,18 @@ TOL = {  # the reference's own tolerances (tests/test_kernels.py)
     "STATS": dict(rtol=0, atol=0),
 }
 P9_SEEDS = (0, 1, 2)  # the composite's three dates
-#: the serving phase: one batch of requests per model, at published widths
-SERVE_MODELS = ("olmo-1b", "gemma-2b", "mamba2-780m")
+#: the serving phase: batches of requests per model, at published widths
+SERVE_MODELS = ("olmo-1b", "gemma-2b", "mamba2-780m", "gemma3-12b")
 BATCH, PROMPT, NEW_TOKENS, MAX_SEQ = 4, 1024, 32, 1056
 CHECK_PROMPT = 256  # the one request held against the CPU run: one SSD chunk
+#: gemma3-12b: prompts past its window (the rings wrap; prefill rolls them
+#: by 1536 mod 1024 = 512) and short of it (the rings part empty)
+SERVE_PROMPTS = {"gemma3-12b": (1536, 512)}
+SERVE_MAX_SEQ = {"gemma3-12b": 1568}
+#: the CPU check of gemma3-12b: its first layers (5 local, 1 global) at full
+#: width, one request past the window (the ring rolled by 76) and one short
+#: of it, 8 greedy steps each, with the served max_seq (1024-slot rings)
+CPU_CUT = {"gemma3-12b": dict(n_layers=6, prompts=(1100, 300), steps=8)}
 KERNELS = {
     "pansharpen": dict(
         source="src/repro_torch/kernels/csrc/pansharpen.cu",
@@ -2115,13 +2131,14 @@ def kernel_line(rows, launch_counts) -> tuple:
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def first_call_args(module, name: str):
-    """Record the arguments of the first call to ``module.name`` (the
-    model's layer 0) while the block runs."""
-    orig, box = getattr(module, name), []
+    """Record the tensor arguments of the first call to ``module.name``
+    with each ``window`` keyword (absent: 0) while the block runs: the
+    model's layer 0, and for gemma3-12b also its first global layer."""
+    orig, box = getattr(module, name), {}
 
     def record(*args, **kwargs):
-        if not box:
-            box.append([a.clone() for a in args if torch.is_tensor(a)])
+        box.setdefault(kwargs.get("window", 0),
+                       [a.clone() for a in args if torch.is_tensor(a)])
         return orig(*args, **kwargs)
 
     setattr(module, name, record)
@@ -2129,6 +2146,25 @@ def first_call_args(module, name: str):
         yield box
     finally:
         setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def b4_launches_by_window():
+    """Tally, by ``window``, the launches that B4's wrapper counts during
+    each ``ops.flash_attention`` call while the block runs."""
+    orig, tally = ops.flash_attention, {}
+
+    def counted(q, k, v, causal=True, window=0):
+        n = fa_k.flash_attention_cuda.launches
+        out = orig(q, k, v, causal, window)
+        tally[window] = tally.get(window, 0) + fa_k.flash_attention_cuda.launches - n
+        return out
+
+    ops.flash_attention = counted
+    try:
+        yield tally
+    finally:
+        ops.flash_attention = orig
 
 
 def logit_tolerance(cfg, cpu_logits: torch.Tensor) -> float:
@@ -2142,10 +2178,10 @@ def logit_tolerance(cfg, cpu_logits: torch.Tensor) -> float:
     return float(9 * 2.0 ** -8 * math.sqrt(2 * cfg.n_layers) * real.std())
 
 
-def cpu_greedy(model, cfg, prompt: torch.Tensor, n_new: int) -> tuple:
+def cpu_greedy(model, cfg, prompt: torch.Tensor, n_new: int, max_seq: int) -> tuple:
     """The port's CPU run (plain versions): last-position logits of the
     prefill, the greedy tokens and the logits each one was taken from."""
-    logits, cache = TL.prefill(model, cfg, prompt, max_seq=prompt.shape[1] + n_new)
+    logits, cache = TL.prefill(model, cfg, prompt, max_seq=max_seq)
     first, tokens, steps = logits, [], []
     for _ in range(n_new):
         steps.append(logits.reshape(-1))
@@ -2155,59 +2191,20 @@ def cpu_greedy(model, cfg, prompt: torch.Tensor, n_new: int) -> tuple:
     return first, tokens, steps
 
 
-def serve_model(arch: str) -> tuple:
-    """Serve ``arch`` at its published widths on the card; returns the run's
-    record and the layer-0 inputs of the kernel on its path."""
-    cfg = TC.get_config(arch)
-    kernel = "flash_attention" if cfg.family == "dense" else "ssd_intra_chunk"
-    t0 = time.perf_counter()
-    model = TL.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT))).cuda()
-    engine = ServeEngine(cfg, model, max_seq=MAX_SEQ, device="cuda")
-
-    # warm-up (CUDA's lazy module loading), recording layer 0's kernel inputs
-    with first_call_args(ops, kernel) as box:
-        engine.generate(prompts, max_new_tokens=2)
-    torch.cuda.synchronize()
-
-    # the main path: one generate call, launch counts read around it
-    reset_launches()
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    counts = launches()
-    out_h = out.cpu()
-    if out_h.shape != (BATCH, PROMPT + NEW_TOKENS):
-        raise AssertionError(f"{arch}: generated {tuple(out_h.shape)}")
-    if not torch.equal(out_h[:, :PROMPT], prompts.cpu()):
-        raise AssertionError(f"{arch}: prompts not kept")
-    if not ((out_h >= 0) & (out_h < cfg.vocab_size)).all():
-        raise AssertionError(f"{arch}: tokens outside the vocabulary")
-
-    prefill_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, _ = TL.prefill(model, cfg, prompts, max_seq=MAX_SEQ)
-        torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t0)
-    if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
-        raise AssertionError(f"{arch}: non-finite prefill logits")
-    prefill_ms = float(np.median(prefill_s)) * 1e3
-    profiled = profile_serving(model, cfg, prompts)
-
-    # the same weights on the CPU (plain versions), one 256-token request
-    req = prompts[:1, :CHECK_PROMPT]
-    gpu_logits, _ = TL.prefill(model, cfg, req)
-    gpu_tokens = engine.generate(req, max_new_tokens=NEW_TOKENS)[0, CHECK_PROMPT:].tolist()
+def hold_against_cpu(arch: str, cfg, model, req: torch.Tensor, n_new: int,
+                     max_seq: int) -> dict:
+    """One request on the card and through the port's CPU run of the same
+    weights: last-position prefill logits within :func:`logit_tolerance`,
+    and the greedy tokens equal until the CPU's top two logits come within
+    it, where the card's token must be a near tie on the CPU."""
+    P = req.shape[1]
+    gpu_logits, _ = TL.prefill(model, cfg, req, max_seq=max_seq)
+    engine = ServeEngine(cfg, model, max_seq=max_seq, device="cuda")
+    gpu_tokens = engine.generate(req, max_new_tokens=n_new)[0, P:].tolist()
     t0 = time.perf_counter()
     cpu_model = TL.LM(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
-    cpu_logits, cpu_tokens, step_logits = cpu_greedy(cpu_model, cfg, req.cpu(), NEW_TOKENS)
+    cpu_logits, cpu_tokens, step_logits = cpu_greedy(cpu_model, cfg, req.cpu(), n_new, max_seq)
     cpu_s = time.perf_counter() - t0
     del cpu_model
     tol = logit_tolerance(cfg, cpu_logits)
@@ -2229,19 +2226,111 @@ def serve_model(arch: str) -> tuple:
             raise AssertionError(f"{arch}: at step {first_split} the card's token is "
                                  f"{float(at.max() - at[gpu_tokens[first_split]])} below the "
                                  f"CPU's best, over {tol}")
+    return dict(prompt=P, n_layers=cfg.n_layers, new_tokens=n_new, max_seq=max_seq,
+                logit_max_abs_diff=float(diff.max()), logit_tol=tol, tokens_compared=steps,
+                first_split=first_split, min_top2_gap=min(gaps), cpu_s=cpu_s)
+
+
+def layer_cut(model, cfg, n_layers: int, device: str) -> tuple:
+    """The config and a copy on ``device`` of ``model`` with its first
+    ``n_layers`` blocks (embedding, final norm and head as they are)."""
+    cut_cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cut = TL.LM(cut_cfg, device=device)
+    cut.load_state_dict({k: v for k, v in model.state_dict().items()
+                         if not k.startswith("blocks.") or int(k.split(".")[1]) < n_layers})
+    return cut_cfg, cut
+
+
+def serve_model(arch: str) -> tuple:
+    """Serve ``arch`` at its published widths on the card, one ``generate``
+    call per prompt length of :data:`SERVE_PROMPTS`; returns the run's
+    record and the inputs of the first call to the kernel on its path, by
+    window (layer 0, and gemma3-12b's first global layer)."""
+    cfg = TC.get_config(arch)
+    kernel = "flash_attention" if cfg.family == "dense" else "ssd_intra_chunk"
+    max_seq = SERVE_MAX_SEQ.get(arch, MAX_SEQ)
+    t0 = time.perf_counter()
+    model = TL.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lengths = SERVE_PROMPTS.get(arch, (PROMPT,))
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, n))).cuda()
+               for n in lengths]
+    engine = ServeEngine(cfg, model, max_seq=max_seq, device="cuda")
+
+    # warm-up (CUDA's lazy module loading), recording the kernel's inputs
+    with first_call_args(ops, kernel) as box:
+        engine.generate(batches[0], max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    counts = {name: 0 for name in KERNELS}
+    by_window = {}  # B4's launches on the main path, by window
+    runs = []
+    for prompts in batches:
+        P = prompts.shape[1]
+        # the main path: one generate call, launch counts read around it
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with b4_launches_by_window() as tally:
+            t0 = time.perf_counter()
+            out = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        for name, n in launches().items():
+            counts[name] += n
+        for w, n in tally.items():
+            by_window[w] = by_window.get(w, 0) + n
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out_h = out.cpu()
+        if out_h.shape != (BATCH, P + NEW_TOKENS):
+            raise AssertionError(f"{arch}: generated {tuple(out_h.shape)}")
+        if not torch.equal(out_h[:, :P], prompts.cpu()):
+            raise AssertionError(f"{arch}: prompts not kept")
+        if not ((out_h >= 0) & (out_h < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: tokens outside the vocabulary")
+
+        prefill_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = TL.prefill(model, cfg, prompts, max_seq=max_seq)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
+            raise AssertionError(f"{arch}: non-finite prefill logits")
+        prefill_ms = float(np.median(prefill_s)) * 1e3
+        runs.append(dict(
+            prompt=P, generate_s=gen_s, prefill_ms=prefill_ms, prefill_runs_s=prefill_s,
+            decode_ms_per_token=(gen_s * 1e3 - prefill_ms) / NEW_TOKENS,
+            tokens_per_s=BATCH * NEW_TOKENS / gen_s,
+            prefill_tokens_per_s=BATCH * P / (prefill_ms / 1e3),
+            peak_allocated_gb=peak_gb, profile=profile_serving(model, cfg, prompts, max_seq),
+        ))
+
+    # the same weights on the CPU (plain versions): one 256-token request,
+    # or a cut of the first layers on the card and the CPU
+    cut = CPU_CUT.get(arch)
+    if cut is None:
+        checks = [hold_against_cpu(arch, cfg, model, batches[0][:1, :CHECK_PROMPT], NEW_TOKENS,
+                                   CHECK_PROMPT + NEW_TOKENS)]
+    else:
+        cut_cfg, cut_model = layer_cut(model, cfg, cut["n_layers"], "cuda")
+        checks = [hold_against_cpu(arch, cut_cfg, cut_model, batches[0][:1, :n], cut["steps"],
+                                   max_seq) for n in cut["prompts"]]
+        del cut_model
 
     record = dict(
-        model=arch, kernel=kernel, init_s=init_s, batch=BATCH, prompt=PROMPT,
-        new_tokens=NEW_TOKENS, generate_s=gen_s, prefill_ms=prefill_ms, prefill_runs_s=prefill_s,
-        decode_ms_per_token=(gen_s * 1e3 - prefill_ms) / NEW_TOKENS,
-        tokens_per_s=BATCH * NEW_TOKENS / gen_s,
-        prefill_tokens_per_s=BATCH * PROMPT / (prefill_ms / 1e3),
-        launches=counts, profile=profiled,
-        cpu_check=dict(prompt=CHECK_PROMPT, logit_max_abs_diff=float(diff.max()), logit_tol=tol,
-                       tokens_compared=steps, first_split=first_split,
-                       min_top2_gap=min(gaps), cpu_s=cpu_s),
+        model=arch, kernel=kernel, init_s=init_s, batch=BATCH, new_tokens=NEW_TOKENS,
+        max_seq=max_seq, **runs[0], batches=runs[1:], launches=counts,
+        b4_launches_by_window={str(w): n for w, n in sorted(by_window.items())},
+        # _logits casts the whole head to float32 on every step (A.15 item 3)
+        head_f32_cast_gb=cfg.vocab_padded * cfg.d_model * 4 / 1e9,
+        cpu_check=checks[0] if len(checks) == 1 else checks,
     )
-    return record, box[0]
+    del model, engine
+    torch.cuda.empty_cache()
+    return record, box
 
 
 #: the CUDA runtime and driver calls by which the host issues device work
@@ -2293,14 +2382,14 @@ def profile_window(fn) -> dict:
                      for e in kernels[:8]])
 
 
-def profile_serving(model, cfg, prompts) -> dict:
+def profile_serving(model, cfg, prompts, max_seq: int) -> dict:
     """:func:`profile_window` over one prefill and, separately, 8 decode
     steps."""
     out = {}
     box = {}
 
     def prefill():
-        box["cache"] = TL.prefill(model, cfg, prompts, max_seq=MAX_SEQ)[1]
+        box["cache"] = TL.prefill(model, cfg, prompts, max_seq=max_seq)[1]
 
     out["prefill"] = profile_window(prefill)
     tok = prompts[:, -1:]
@@ -2313,40 +2402,56 @@ def profile_serving(model, cfg, prompts) -> dict:
     return out
 
 
-def b4_row(cell: str, fa_args) -> tuple:
-    """B4 against its plain version on layer 0's q/k/v of ``cell``'s served
-    prefill, in bfloat16 (the tensor-core design at D >= 64) and in float32
-    (the CUDA-core design), and its time beside the plain version's and
+def b4_row(cell: str, fa_args, window: int = 0, layer: int = 0) -> tuple:
+    """B4 against its plain version on the q/k/v of ``layer`` of ``cell``'s
+    served prefill, with its ``window`` (0: none), in bfloat16 (the
+    tensor-core design at D >= 64) and in float32 (the CUDA-core design),
+    and its time beside the plain version's and
     ``F.scaled_dot_product_attention``'s (k and v repeated to one row per
-    query row for that call only)."""
+    query row and, with a window, a boolean mask, for that call only)."""
     q, k, v = fa_args
-    got = fa_k.flash_attention_cuda(q, k, v, True)
-    want = fa_k.flash_attention_plain(q, k, v, True)
+    got = fa_k.flash_attention_cuda(q, k, v, True, window)
+    want = fa_k.flash_attention_plain(q, k, v, True, window)
     qf, kf, vf = (t.float() for t in (q, k, v))
-    got32 = fa_k.flash_attention_cuda(qf, kf, vf, True)
-    want32 = fa_k.flash_attention_plain(qf, kf, vf, True)
+    got32 = fa_k.flash_attention_cuda(qf, kf, vf, True, window)
+    want32 = fa_k.flash_attention_plain(qf, kf, vf, True, window)
     torch.cuda.synchronize()
     chk = compare("flash_attention", got.float().cpu().numpy(), want.float().cpu().numpy())
     chk["float32"] = compare("flash_attention_f32", got32.cpu().numpy(), want32.cpu().numpy())
-    ms = cuda_ms(lambda: fa_k.flash_attention_cuda(q, k, v, True))
-    plain_ms = cuda_ms(lambda: fa_k.flash_attention_plain(q, k, v, True))
-    G = q.shape[0] // k.shape[0]
-    ke, ve = (t.repeat_interleave(G, dim=0) for t in (k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], ke[None], ve[None],
-                                                            is_causal=True))
+    del qf, kf, vf, got32, want32
+    ms = cuda_ms(lambda: fa_k.flash_attention_cuda(q, k, v, True, window))
+    plain_ms = cuda_ms(lambda: fa_k.flash_attention_plain(q, k, v, True, window))
     BH, S, D = q.shape
-    pairs = S * (S + 1) // 2  # causal (query, key) pairs per row
+    G = BH // k.shape[0]
+    ke, ve = (t.repeat_interleave(G, dim=0) for t in (k, v))
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], ke[None], ve[None],
+                                                                attn_mask=mask))
+    else:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], ke[None], ve[None],
+                                                                is_causal=True))
+    # the (query, key) pairs each row weighs: query i sees min(i + 1, W) keys
+    pairs = sum(min(i + 1, window or S) for i in range(S))
     bnd = bound(nbytes(q, k, v, got), BH * pairs * 4 * D, BF16_TENSOR_FLOPS_PER_S)
-    where = f"layer 0 q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}"
-    return ("flash_attention", cell, where, chk, ms, plain_ms, bnd, lib_ms)
+    where = (f"layer {layer} q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, "
+             f"window {window or 'none'}")
+    return ("flash_attention", cell, where, dict(chk, pairs=pairs), ms, plain_ms, bnd, lib_ms)
 
 
 def lm_kernel_rows(captured: dict) -> list:
-    """B4 (at olmo-1b's and gemma-2b's shapes) and B5 against their plain
-    versions on layer 0's inputs of the served prefill, and their times (20
-    CUDA-event-timed launches each)."""
-    rows = [b4_row(arch, captured[arch]) for arch in ("olmo-1b", "gemma-2b")]
-    ssd_args = captured["mamba2-780m"]
+    """B4 (at olmo-1b's and gemma-2b's shapes, and gemma3-12b's with its
+    window and without) and B5 against their plain versions on the inputs
+    of the served prefill, and their times (20 CUDA-event-timed launches
+    each)."""
+    rows = [b4_row(arch, captured[arch][0]) for arch in ("olmo-1b", "gemma-2b")]
+    g3 = TC.get_config("gemma3-12b")
+    rows.append(b4_row("gemma3-12b local", captured["gemma3-12b"][g3.sliding_window],
+                       g3.sliding_window))
+    rows.append(b4_row("gemma3-12b global", captured["gemma3-12b"][0], 0,
+                       TL.layer_flags(g3).index(True)))
+    ssd_args = captured["mamba2-780m"][0]
     x, dt, cum, B, C = ssd_args
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("B5's plain version must run its matmuls in full float32")
@@ -2485,11 +2590,23 @@ def main(argv: list) -> int:
         record, captured[arch] = serve_model(arch)
         runs[arch] = record
         print(json.dumps({"serve": record}), flush=True)
-        n_layers = TC.get_config(arch).n_layers
+        cfg = TC.get_config(arch)
+        prefills = len(SERVE_PROMPTS.get(arch, (PROMPT,)))  # one per generate call
         others = {k: n for k, n in record["launches"].items() if k != record["kernel"]}
-        if record["launches"][record["kernel"]] != n_layers or any(others.values()):
+        if record["launches"][record["kernel"]] != prefills * cfg.n_layers or any(others.values()):
             raise AssertionError(f"{arch}: launches {record['launches']}, expected "
-                                 f"{record['kernel']} once per layer ({n_layers}) and no other")
+                                 f"{record['kernel']} once per layer ({cfg.n_layers}) in each "
+                                 f"of {prefills} prefills, none in decode, and no other")
+        if cfg.sliding_window is not None:  # B4's rows split the launches by window
+            local = TL.layer_flags(cfg).count(False)
+            by_window = record["b4_launches_by_window"]
+            want = {"0": prefills * (cfg.n_layers - local),
+                    str(cfg.sliding_window): prefills * local}
+            if by_window != want:
+                raise AssertionError(f"{arch}: B4 launches by window {by_window}, expected {want}")
+            runs[f"{arch} local"] = dict(
+                launches={"flash_attention": by_window[str(cfg.sliding_window)]})
+            runs[f"{arch} global"] = dict(launches={"flash_attention": by_window["0"]})
     rows += lm_kernel_rows(captured)
     phase("serve")
 

@@ -39,9 +39,9 @@ SIGNATURES = {
     "glcm_features_f32": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     # raw, pre, out, H, W, B, hs, hr2, n_iter, stream
     "meanshift_f32": (_I, (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),
-    # q, k, v, out, BHq, BHkv, Sq, Skv, D, causal, scale, stream
-    "flash_attention_f32": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
-    "flash_attention_bf16": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+    # q, k, v, out, BHq, BHkv, Sq, Skv, D, causal, window, scale, stream
+    "flash_attention_f32": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
+    "flash_attention_bf16": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
     # x, dt, cum, B, C, y, states, cells, group, L, P, N, stream
     "ssd_intra_chunk_f32": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "repro_cuda_error_string": (ctypes.c_char_p, (_I,)),

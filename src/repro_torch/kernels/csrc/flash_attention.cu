@@ -1,4 +1,5 @@
-// B4 · online-softmax (flash) attention, causal or not.
+// B4 · online-softmax (flash) attention, causal or not, with or without a
+// sliding window.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (Pallas body
 // _flash_kernel): for each (batch·head) row r and query i,
@@ -7,6 +8,10 @@
 // with no offset), columns past Skv given no weight, a float32 running max
 // m, sum l and accumulator, and the output in q's dtype.  Grouped-query
 // layouts need no repeat of k and v: query row r reads kv row r / group.
+// A window W > 0 also masks j <= i − W: the mask of the reference model's
+// local layers (src/repro/models/layers.py::_mask_bias), which the TPU
+// kernel does not take (the reference computes those layers in jnp).  The
+// wrapper refuses a window that leaves a query row with no key.
 //
 // What bounds it on the H100: at the served shapes (olmo-1b prefill: BH 64,
 // S 1024, D 128; gemma-2b: 32 query rows over 4 kv rows, S 1024, D 256;
@@ -37,8 +42,14 @@
 //   operations of one pass).  The two warpgroups take turns (named
 //   barriers) to issue P·V of tile j together with S of tile j + 1, so one
 //   warpgroup's products run while the other does its softmax.  Tiles
-//   wholly above the diagonal are not loaded; only tiles that cross the
-//   diagonal or the end of the sequence are masked.  Rows past Sq are not
+//   wholly above the diagonal (or below the window) are not loaded; only
+//   tiles that cross the diagonal, the window's lower edge or the end of
+//   the sequence are masked.  The rings count tiles from the block's first
+//   loaded tile, which a window moves off 0.  Keys below a row's window get
+//   −inf, not −1e30: a row's first tile may hold no key of its window, and
+//   exp2(s·c − m) with m = round(s·c) of s = −1e30 is 2^(rounding error),
+//   which is 0 or inf; with −inf the row keeps m = −inf and its exponents
+//   are taken against 0 until its first key.  Rows past Sq are not
 //   stored.
 // * float32 (every D), and bfloat16 at D = 16 and 32 (too narrow for the
 //   128-byte panels of the tensor-core kernel): the CUDA-core kernel
@@ -56,7 +67,9 @@
 //   K reads nor the P·V reads conflict on banks.
 //
 // Both launch the heaviest causal query blocks first and stop a causal
-// block at its last row's tile.
+// block at its last row's tile.  With a window, a block starts at the tile
+// that holds its first row's first key: tiles wholly below every row's
+// window are neither loaded nor computed.
 #include <cuda_bf16.h>
 
 #include <math.h>
@@ -99,7 +112,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int group, int Sq, int Skv, int causal, float scale) {
+    T* __restrict__ out, int group, int Sq, int Skv, int causal, int window, float scale) {
   constexpr int DS = D + 1;
   constexpr int DC = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -128,7 +141,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   }
 
   const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // Q loaded; the previous tile's V no longer read
     load_tile<T, D>(kv, kg, k0, Skv, 1.0f);
     __syncthreads();
@@ -160,8 +174,9 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
         const int col = k0 + tx + 16 * b;
         if (col >= Skv)
           s[a][b] = -INFINITY;  // past the sequence: no weight at all
-        else if (causal && col > row)
-          s[a][b] = -1e30f;  // the TPU kernel's causal mask value
+        else if ((causal && col > row) || (window > 0 && col <= row - window))
+          s[a][b] = -1e30f;  // the TPU kernel's causal mask value; a tile all
+                             // masked for a row is erased by the next corr = 0
         mx = fmaxf(mx, s[a][b]);
       }
       const float m_new = fmaxf(m[a], row_max16(mx));
@@ -208,14 +223,14 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 
 template <typename T, int D>
 int launch(const T* q, const T* k, const T* v, T* out, int BHq, int BHkv, int Sq,
-           int Skv, int causal, float scale, cudaStream_t stream) {
+           int Skv, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = ((size_t)(BQ + BK) * (D + 1) + (size_t)BQ * PS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, BHq);
   flash_attention_kernel<T, D><<<grid, NT, smem, stream>>>(q, k, v, out, BHq / BHkv, Sq, Skv,
-                                                           causal, scale);
+                                                           causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -272,44 +287,49 @@ struct Turn {
   bool first;
 };
 
-// One kv tile for one consumer warpgroup, whose S of tile j is in `sc`:
-// masks, online softmax, then one turn that issues O += P·V of tile j and,
-// when kNext, S of tile j + 1.
+// One kv tile for one consumer warpgroup, whose S of the block's tile t
+// (kv tile j0 + t) is in `sc`: masks, online softmax, then one turn that
+// issues O += P·V of tile t and, when kNext, S of tile t + 1.  Ring slots
+// and mbarrier parities count t, the tiles this block has loaded.
 template <int D, bool kNext>
-__device__ __forceinline__ void tile_step(int j, float (&o)[D / 2], float (&sc)[Shape<D>::BK / 2],
-                                          float (&m)[2], float (&l)[2], const Turn& turn,
-                                          int row_wg, int r0, int cq, int Skv, int causal,
+__device__ __forceinline__ void tile_step(int t, int j0, float (&o)[D / 2],
+                                          float (&sc)[Shape<D>::BK / 2], float (&m)[2],
+                                          float (&l)[2], const Turn& turn, int row_wg, int r0,
+                                          int cq, int Skv, int causal, int window,
                                           float scale_log2, const uint8_t* q_wg,
                                           const uint8_t* k_s, const uint8_t* v_s,
                                           uint64_t* k_full, uint64_t* v_full,
                                           uint64_t* k_empty, uint64_t* v_empty) {
   using Sh = Shape<D>;
   constexpr int BK = Sh::BK;
-  const int s = j % STAGES;
-  const int k0 = j * BK;
+  const int s = t % STAGES;
+  const int k0 = (j0 + t) * BK;
 
   // the masks, and each row's max over its 4 lanes; the running max m is
   // kept in log2 units (score · scale · log2 e)
-  const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > row_wg);
+  const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > row_wg) ||
+                    (window > 0 && k0 <= row_wg + 63 - window);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) {
     if (edge) {
       const int col = k0 + 8 * (i / 4) + cq + (i % 2);
-      if (col >= Skv)
-        sc[i] = -INFINITY;  // past the sequence: no weight at all
-      else if (causal && col > r0 + 8 * ((i / 2) % 2))
+      const int row = r0 + 8 * ((i / 2) % 2);
+      if (col >= Skv || (window > 0 && col <= row - window))
+        sc[i] = -INFINITY;  // past the sequence or below the window: no weight
+      else if (causal && col > row)
         sc[i] = -1e30f;  // the TPU kernel's causal mask value
     }
     mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
   }
-  float alpha[2];
+  float alpha[2], mb[2];  // mb: the exponents' base, 0 while m = −inf
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
     const float m_new = fmaxf(m[h], mx[h] * scale_log2);
-    alpha[h] = ex2(m[h] - m_new);  // 0 on the first tile (m = −inf)
+    mb[h] = m_new == -INFINITY ? 0.0f : m_new;
+    alpha[h] = ex2(m[h] - mb[h]);  // 0 until the row's first key (m = −inf)
     m[h] = m_new;
     l[h] *= alpha[h];
   }
@@ -323,8 +343,8 @@ __device__ __forceinline__ void tile_step(int j, float (&o)[D / 2], float (&sc)[
 #pragma unroll
   for (int i = 0; i < BK / 2; i += 2) {
     const int h = (i / 2) % 2;
-    const float p0 = ex2(fmaf(sc[i], scale_log2, -m[h]));
-    const float p1 = ex2(fmaf(sc[i + 1], scale_log2, -m[h]));
+    const float p0 = ex2(fmaf(sc[i], scale_log2, -mb[h]));
+    const float p1 = ex2(fmaf(sc[i + 1], scale_log2, -mb[h]));
     l[h] += p0 + p1;
     const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
     const float2 hf = __bfloat1622float2(hi);
@@ -334,7 +354,7 @@ __device__ __forceinline__ void tile_step(int j, float (&o)[D / 2], float (&sc)[
 
   // one turn: O += P_hi·V + P_lo·V, then S of the next tile
   hopper::bar_sync(turn.mine, CONSUMERS);
-  hopper::mbar_wait(v_full + s, (j / STAGES) & 1);
+  hopper::mbar_wait(v_full + s, (t / STAGES) & 1);
   hopper::fence_regs(o);
   hopper::fence_regs(sc);
   hopper::fence_regs(p_hi);
@@ -348,8 +368,8 @@ __device__ __forceinline__ void tile_step(int j, float (&o)[D / 2], float (&sc)[
     hopper::wgmma_rs_tb(o, p_lo[kk], dv);
   }
   if (kNext) {  // a template argument: no branch around a wgmma
-    const int s1 = (j + 1) % STAGES;
-    hopper::mbar_wait(k_full + s1, ((j + 1) / STAGES) & 1);
+    const int s1 = (t + 1) % STAGES;
+    hopper::mbar_wait(k_full + s1, ((t + 1) / STAGES) & 1);
     issue_scores<D>(sc, q_wg, k_s + s1 * Sh::KV_BYTES);
   }
   hopper::wgmma_commit();
@@ -360,9 +380,9 @@ __device__ __forceinline__ void tile_step(int j, float (&o)[D / 2], float (&sc)[
   hopper::fence_regs(sc);
   hopper::fence_regs(p_hi);
   hopper::fence_regs(p_lo);
-  if (threadIdx.x % 32 == 0) {  // this warp is done with V of tile j and K of tile j + 1
+  if (threadIdx.x % 32 == 0) {  // this warp is done with V of tile t and K of tile t + 1
     hopper::mbar_arrive(v_empty + s);
-    if (kNext) hopper::mbar_arrive(k_empty + (j + 1) % STAGES);
+    if (kNext) hopper::mbar_arrive(k_empty + (t + 1) % STAGES);
   }
 }
 
@@ -370,7 +390,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int group, int Sq,
-    int Skv, int causal, float scale_log2) {
+    int Skv, int causal, int window, float scale_log2) {
   using Sh = Shape<D>;
   constexpr int BK = Sh::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -387,7 +407,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc(
   const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * BQ;  // heaviest causal blocks first
   const int bh = blockIdx.x;
   const int kv_end = causal ? min(Skv, min(Sq, q0 + BQ)) : Skv;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;  // first kv tile loaded
+  const int n_tiles = (kv_end + BK - 1) / BK - j0;  // >= 1: the wrapper leaves no row keyless
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -408,18 +429,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc(
       hopper::mbar_expect_tx(q_full, Sh::Q_BYTES);
       for (int p = 0; p < Sh::PANELS; ++p)
         hopper::tma_load_3d(q_s + p * Sh::Q_PANEL, &tq, q_full, 64 * p, q0, bh);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % STAGES;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int k0 = (j0 + t) * BK;
         uint8_t* kt = k_s + s * Sh::KV_BYTES;
         uint8_t* vt = v_s + s * Sh::KV_BYTES;
-        if (j >= STAGES) hopper::mbar_wait(k_empty + s, (j / STAGES - 1) & 1);
+        if (t >= STAGES) hopper::mbar_wait(k_empty + s, (t / STAGES - 1) & 1);
         hopper::mbar_expect_tx(k_full + s, Sh::KV_BYTES);
         for (int p = 0; p < Sh::PANELS; ++p)
-          hopper::tma_load_3d(kt + p * Sh::KV_PANEL, &tk, k_full + s, 64 * p, j * BK, bkv);
-        if (j >= STAGES) hopper::mbar_wait(v_empty + s, (j / STAGES - 1) & 1);
+          hopper::tma_load_3d(kt + p * Sh::KV_PANEL, &tk, k_full + s, 64 * p, k0, bkv);
+        if (t >= STAGES) hopper::mbar_wait(v_empty + s, (t / STAGES - 1) & 1);
         hopper::mbar_expect_tx(v_full + s, Sh::KV_BYTES);
         for (int p = 0; p < Sh::PANELS; ++p)
-          hopper::tma_load_3d(vt + p * Sh::KV_PANEL, &tv, v_full + s, 64 * p, j * BK, bkv);
+          hopper::tma_load_3d(vt + p * Sh::KV_PANEL, &tv, v_full + s, 64 * p, k0, bkv);
       }
     }
     return;  // the paths never rejoin (setmaxnreg)
@@ -462,11 +484,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc(
   if (threadIdx.x % 32 == 0) hopper::mbar_arrive(k_empty);  // K of tile 0 is read
 
   const Turn turn{my_turn, other_turn, wg == 0};
-  for (int j = 0; j + 1 < n_tiles; ++j)
-    tile_step<D, true>(j, o, sc, m, l, turn, row_wg, r0, cq, Skv, causal, scale_log2, q_wg, k_s,
-                       v_s, k_full, v_full, k_empty, v_empty);
-  tile_step<D, false>(n_tiles - 1, o, sc, m, l, turn, row_wg, r0, cq, Skv, causal, scale_log2,
-                      q_wg, k_s, v_s, k_full, v_full, k_empty, v_empty);
+  for (int t = 0; t + 1 < n_tiles; ++t)
+    tile_step<D, true>(t, j0, o, sc, m, l, turn, row_wg, r0, cq, Skv, causal, window, scale_log2,
+                       q_wg, k_s, v_s, k_full, v_full, k_empty, v_empty);
+  tile_step<D, false>(n_tiles - 1, j0, o, sc, m, l, turn, row_wg, r0, cq, Skv, causal, window,
+                      scale_log2, q_wg, k_s, v_s, k_full, v_full, k_empty, v_empty);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -520,7 +542,7 @@ bool tile_map(CUtensorMap* map, const void* base, int D, int rows, int heads, in
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int BHq, int BHkv, int Sq,
-           int Skv, int causal, float scale, cudaStream_t stream) {
+           int Skv, int causal, int window, float scale, cudaStream_t stream) {
   using Sh = Shape<D>;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) return (int)cudaErrorMisalignedAddress;
@@ -533,7 +555,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int BHq, int 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(BHq, (Sq + BQ - 1) / BQ);
   flash_attention_tc<D><<<grid, THREADS, Sh::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, BHq / BHkv, Sq, Skv, causal, scale * 1.4426950408889634f);
+      mq, mk, mv, (__nv_bfloat16*)out, BHq / BHkv, Sq, Skv, causal, window,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -541,30 +564,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int BHq, int 
 
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v, float* out,
                                    int BHq, int BHkv, int Sq, int Skv, int D, int causal,
-                                   float scale, void* stream) {
+                                   int window, float scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return simt::launch<float, 16>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 32: return simt::launch<float, 32>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 64: return simt::launch<float, 64>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 128: return simt::launch<float, 128>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 256: return simt::launch<float, 256>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
+    case 16: return simt::launch<float, 16>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 32: return simt::launch<float, 32>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 64: return simt::launch<float, 64>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 128: return simt::launch<float, 128>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 256: return simt::launch<float, 256>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int BHq, int BHkv, int Sq, int Skv, int D, int causal,
-                                    float scale, void* stream) {
+                                    int window, float scale, void* stream) {
   using bf = __nv_bfloat16;
   const cudaStream_t s = (cudaStream_t)stream;
   const bf *qb = (const bf*)q, *kb = (const bf*)k, *vb = (const bf*)v;
   switch (D) {  // CUDA cores below one 64-column panel, tensor cores from there
-    case 16: return simt::launch<bf, 16>(qb, kb, vb, (bf*)out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 32: return simt::launch<bf, 32>(qb, kb, vb, (bf*)out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 64: return tc::launch<64>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 128: return tc::launch<128>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
-    case 256: return tc::launch<256>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, scale, s);
+    case 16: return simt::launch<bf, 16>(qb, kb, vb, (bf*)out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 32: return simt::launch<bf, 32>(qb, kb, vb, (bf*)out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 64: return tc::launch<64>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 128: return tc::launch<128>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
+    case 256: return tc::launch<256>(q, k, v, out, BHq, BHkv, Sq, Skv, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

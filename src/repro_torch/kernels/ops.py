@@ -61,10 +61,12 @@ def meanshift(x: torch.Tensor, hs: int = 3, hr: float = 100.0, n_iter: int = 4,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """B4; ``window`` > 0 masks keys more than ``window − 1`` before the query."""
     if _on_cpu(q):
-        return _fa.flash_attention_plain(q, k, v, causal)
-    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+        return _fa.flash_attention_plain(q, k, v, causal, window)
+    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                                    window)
 
 
 def ssd_intra_chunk(x, dt, cum, B, C) -> Tuple[torch.Tensor, torch.Tensor]:

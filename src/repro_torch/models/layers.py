@@ -56,22 +56,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+               window: Optional[int], is_global: bool) -> torch.Tensor:
+    """(Sq, Skv) additive float32 bias, 0 where key ``kv_pos`` is visible
+    from query ``q_pos`` and −1e30 where not: causal keys up to the query,
+    and on a local layer (``window`` set, ``is_global`` false) only keys
+    more recent than ``q_pos − window``.  Positions are 1-D and shared by
+    the batch."""
+    dq, dk = q_pos[:, None], kv_pos[None, :]
+    ok = dk <= dq if causal else torch.ones((dq.shape[0], dk.shape[1]), dtype=torch.bool,
+                                             device=q_pos.device)
+    if window is not None and not is_global:
+        ok = ok & (dk > dq - window)
+    return torch.where(ok, 0.0, -1e30).to(_F32)
+
+
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool) -> torch.Tensor:
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                    window: Optional[int] = None, is_global: bool = False) -> torch.Tensor:
     """Grouped-query attention without the GQA-expanded cache.
 
     q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) with Hq = Hkv·G.  Scores and
     softmax are float32; as in the reference, the probabilities are cast to
-    v's dtype before P·V.
+    v's dtype before P·V.  Masked as :func:`_mask_bias` says.
     """
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(_F32), k.to(_F32)) / math.sqrt(D)
-    if causal:
-        ok = kv_pos[None, :] <= q_pos[:, None]
-        scores = scores + torch.where(ok, 0.0, -1e30).to(_F32)
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores + _mask_bias(q_pos, kv_pos, causal, window, is_global), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, D)
 

@@ -7,8 +7,10 @@ reference's names (``wq``, ``wd_``, ``sA_log``, ...).  Prefill attention is
 kernel B4 and the SSD chunk block kernel B5, both through
 ``kernels/ops.py``; everything else is plain PyTorch, as it is jnp in the
 reference.  The cache is a dict laid out like the reference's (per-layer
-leaves stacked on a leading L axis), updated in place by ``decode_step``
-(the reference returns a new one) so a step copies no cache.
+leaves stacked on a leading L axis; for a sliding-window model whose depth
+is a multiple of its global interval g, grouped (L/g, g−1) local rings of
+the window's length and (L/g, 1) global caches), updated in place by
+``decode_step`` (the reference returns a new one) so a step copies no cache.
 
 Families and options the port does not serve yet raise
 ``NotImplementedError`` naming their ROADMAP item (A.16).
@@ -45,8 +47,6 @@ def check_supported(cfg: ModelConfig) -> None:
     }.get(cfg.family)
     if missing is None and cfg.family not in ("dense", "ssm"):
         missing = f"the {cfg.family} family"
-    if missing is None and cfg.sliding_window is not None:
-        missing = "sliding-window attention"
     if missing is None and cfg.logit_softcap is not None:
         missing = "attention logit softcapping"
     if missing is None and not cfg.causal:
@@ -55,6 +55,25 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"repro_torch does not serve {missing} yet ({cfg.name}; ROADMAP A.16)"
         )
+
+
+def grouped_decode(cfg: ModelConfig) -> bool:
+    """Sliding-window models whose global interval g divides the depth keep
+    their caches grouped (L/g, g, ...): a ring of min(window, max_seq) slots
+    for each local layer, the full sequence for the one global layer."""
+    g = cfg.global_interval
+    return bool(cfg.sliding_window is not None and g and cfg.n_layers % g == 0
+                and cfg.family != "ssm")
+
+
+def layer_flags(cfg: ModelConfig) -> list:
+    """One bool per layer, True where the layer attends globally: every
+    layer without a window, else every ``global_interval``-th (the last of
+    each group)."""
+    if cfg.sliding_window is None or cfg.global_interval is None:
+        return [True] * cfg.n_layers
+    g = cfg.global_interval
+    return [i % g == g - 1 for i in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -156,11 +175,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _attn(h, blk: Block, cfg: ModelConfig, positions, cache_kv=None, pos: int = 0):
+def _attn(h, blk: Block, cfg: ModelConfig, positions, is_global: bool, cache_kv=None,
+          pos: int = 0, ring: bool = False):
     """Returns (out, (k, v)).  Without a cache (prefill) the attention is
-    kernel B4 over every (batch, head) row; with one ((B,Smax,nkv,hd) each,
-    decode) the new k, v are written at ``pos`` in place and the step
-    attends over the whole cache, its unwritten slots masked by position."""
+    kernel B4 over every (batch, head) row, with the window on a local
+    layer.  With one (decode), the new k, v are written in place: into a
+    ring of Wa slots ((B,Wa,nkv,hd) each, ``ring``) at ``pos % Wa``, or
+    into a full cache ((B,Smax,nkv,hd)) at ``pos``; the step attends over
+    the whole cache, its unwritten slots masked by position."""
     B, S, _ = h.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = h @ blk.wq, h @ blk.wk, h @ blk.wv
@@ -172,27 +194,35 @@ def _attn(h, blk: Block, cfg: ModelConfig, positions, cache_kv=None, pos: int = 
     if cfg.use_rope:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+    window = None if is_global else cfg.sliding_window
     if cache_kv is None:
         def rows(t):  # (B,S,H,hd) → (B·H, S, hd)
             return t.transpose(1, 2).reshape(-1, S, hd)
 
-        out = ops.flash_attention(rows(q), rows(k), rows(v), causal=True)
+        out = ops.flash_attention(rows(q), rows(k), rows(v), causal=True, window=window or 0)
         out = out.reshape(B, nh, S, hd).transpose(1, 2)
         new_cache = (k, v)
+    elif ring:
+        # slot i holds the newest position ≡ i (mod Wa); one new position
+        # per step.  A slot not written yet (kv_pos < 0: the prompt was
+        # shorter than the ring) is masked, where the reference gives it
+        # position i − Wa, inside the window (ROADMAP C.14)
+        ck, cv = cache_kv
+        Wa = ck.shape[1]
+        ck[:, pos % Wa] = k[:, 0]
+        cv[:, pos % Wa] = v[:, 0]
+        slots = torch.arange(Wa, device=h.device)
+        kv_pos = pos - (pos - slots) % Wa
+        kv_pos = torch.where(kv_pos < 0, pos + 1, kv_pos)  # unwritten: causally masked
+        out = L.naive_attention(q, ck, cv, positions, kv_pos, causal=True, window=window)
+        new_cache = (ck, cv)
     else:
         ck, cv = cache_kv
-        if pos + S > ck.shape[1]:
-            # the slice would be short (or empty) and the step would attend
-            # without its own keys; the reference clamps the write instead,
-            # which overwrites the last cached position
-            raise ValueError(
-                f"decode past the KV cache: positions {pos}..{pos + S - 1} do not "
-                f"fit a cache of length {ck.shape[1]}"
-            )
         ck[:, pos : pos + S] = k
         cv[:, pos : pos + S] = v
         kv_pos = torch.arange(ck.shape[1], device=h.device)
-        out = L.naive_attention(q, ck, cv, positions, kv_pos, causal=True)
+        out = L.naive_attention(q, ck, cv, positions, kv_pos, causal=True, window=window,
+                                is_global=is_global)
         new_cache = (ck, cv)
     return out.reshape(B, S, nh * hd) @ blk.wo, new_cache
 
@@ -232,7 +262,8 @@ def _ssm(h, blk: Block, cfg: ModelConfig, conv_cache=None, ssm_state=None):
     return y @ blk.sout, (new_conv, new_state)
 
 
-def _block(h, blk: Block, cfg: ModelConfig, positions, caches: Dict, pos: int = 0):
+def _block(h, blk: Block, cfg: ModelConfig, positions, caches: Dict, pos: int = 0,
+           is_global: bool = True, ring: bool = False):
     """One block; ``caches`` holds this layer's kv / conv / state entries
     (empty in the prefill).  Returns (h, new_caches)."""
     sc1, sc2 = getattr(blk, "norm1", None), getattr(blk, "norm2", None)
@@ -240,7 +271,8 @@ def _block(h, blk: Block, cfg: ModelConfig, positions, caches: Dict, pos: int = 
         out, (cv, st) = _ssm(L.norm(h, sc1, cfg.norm_type), blk, cfg,
                              caches.get("conv"), caches.get("state"))
         return h + out, {"conv": cv, "state": st}
-    out, kv = _attn(L.norm(h, sc1, cfg.norm_type), blk, cfg, positions, caches.get("kv"), pos)
+    out, kv = _attn(L.norm(h, sc1, cfg.norm_type), blk, cfg, positions, is_global,
+                    caches.get("kv"), pos, ring)
     h = h + out
     h = h + _mlp(L.norm(h, sc2, cfg.norm_type), blk, cfg)
     return h, {"kv": kv}
@@ -273,22 +305,43 @@ def _logits(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict:
-    """Zeroed cache: k/v (L,B,max_seq,nkv,hd) for attention, conv
-    (L,B,K−1,C) and state (L,B,H,N,P) float32 for SSD, and ``pos``."""
+    """Zeroed cache: k/v (L,B,max_seq,nkv,hd) for attention, or when
+    :func:`grouped_decode` k_loc/v_loc (L/g,g−1,B,Wa,nkv,hd) with Wa =
+    min(window, max_seq) and k_glob/v_glob (L/g,1,B,max_seq,nkv,hd); conv
+    (L,B,K−1,C) and state (L,B,H,N,P) float32 for SSD; and ``pos``."""
     dt = _dtype(cfg)
     dev = resolve_device(device)
     Ln = cfg.n_layers
     cache: Dict = {"pos": 0}
     if cfg.family != "ssm":
-        shape = (Ln, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        tail = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        if grouped_decode(cfg):
+            g = cfg.global_interval
+            ring = (batch, min(cfg.sliding_window, max_seq)) + tail[2:]
+            shapes = {"k_loc": (Ln // g, g - 1) + ring, "v_loc": (Ln // g, g - 1) + ring,
+                      "k_glob": (Ln // g, 1) + tail, "v_glob": (Ln // g, 1) + tail}
+        else:
+            shapes = {"k": (Ln,) + tail, "v": (Ln,) + tail}
+        for key, shape in shapes.items():
+            cache[key] = torch.zeros(shape, dtype=dt, device=dev)
     else:
         di, N, H, G = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, 1
         cache["conv"] = torch.zeros((Ln, batch, cfg.conv_kernel - 1, di + 2 * G * N),
                                     dtype=dt, device=dev)
         cache["state"] = torch.zeros((Ln, batch, H, N, di // H), dtype=_F32, device=dev)
     return cache
+
+
+def _layer_kv(cfg: ModelConfig, cache: Dict, i: int) -> Tuple:
+    """Layer ``i``'s (k, v) views into the cache and whether they are a
+    ring: grouped, layer i is entry i % g of group i // g, global (the
+    group's full cache) when i % g = g − 1."""
+    if "k" in cache:
+        return cache["k"][i], cache["v"][i], False
+    gi, j = divmod(i, cfg.global_interval)
+    if j == cfg.global_interval - 1:
+        return cache["k_glob"][gi, 0], cache["v_glob"][gi, 0], False
+    return cache["k_loc"][gi, j], cache["v_loc"][gi, j], True
 
 
 @torch.no_grad()
@@ -303,12 +356,19 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     cache = init_cache(cfg, B, max(max_seq or S, S), device=params.device)
     positions = torch.arange(S, device=params.device)
     h = embed_tokens(params, cfg, tokens)
-    for i, blk in enumerate(params.blocks):
-        h, ncs = _block(h, blk, cfg, positions, {})
-        if "kv" in ncs:
-            cache["k"][i, :, :S], cache["v"][i, :, :S] = ncs["kv"]
-        else:
+    for i, (blk, is_global) in enumerate(zip(params.blocks, layer_flags(cfg))):
+        h, ncs = _block(h, blk, cfg, positions, {}, is_global=is_global)
+        if "kv" not in ncs:
             cache["conv"][i], cache["state"][i] = ncs["conv"], ncs["state"]
+            continue
+        ck, cv, ring = _layer_kv(cfg, cache, i)
+        k, v = ncs["kv"]
+        if ring:  # the last Wa positions, position p into slot p % Wa
+            Wa = ck.shape[1]
+            slots = torch.arange(max(S - Wa, 0), S, device=params.device)
+            ck[:, slots % Wa], cv[:, slots % Wa] = k[:, slots], v[:, slots]
+        else:
+            ck[:, :S], cv[:, :S] = k, v
     cache["pos"] = S
     return _logits(params, cfg, h[:, -1, :]), cache
 
@@ -321,11 +381,19 @@ def decode_step(params: LM, cfg: ModelConfig, cache: Dict,
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=params.device)
     pos = cache["pos"]
+    full = cache.get("k", cache.get("k_glob"))
+    if full is not None and pos + 1 > full.shape[-3]:
+        # the write would fall off the cache and the step would attend
+        # without its own key; the reference clamps the write instead, which
+        # overwrites the last cached position.  Rings never overflow.
+        raise ValueError(f"decode past the KV cache: position {pos} does not fit a cache "
+                         f"of length {full.shape[-3]}")
     positions = torch.arange(pos, pos + 1, device=params.device)
     h = embed_tokens(params, cfg, tokens)
-    for i, blk in enumerate(params.blocks):
-        if "k" in cache:
-            h, _ = _block(h, blk, cfg, positions, {"kv": (cache["k"][i], cache["v"][i])}, pos)
+    for i, (blk, is_global) in enumerate(zip(params.blocks, layer_flags(cfg))):
+        if full is not None:
+            ck, cv, ring = _layer_kv(cfg, cache, i)
+            h, _ = _block(h, blk, cfg, positions, {"kv": (ck, cv)}, pos, is_global, ring)
         else:
             h, ncs = _block(h, blk, cfg, positions,
                             {"conv": cache["conv"][i], "state": cache["state"][i]})

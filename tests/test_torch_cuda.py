@@ -342,6 +342,61 @@ def test_flash_attention_kernel_matches_plain(cuda, BHq, BHkv, Sq, Skv, D, causa
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("W", [1, 64, 1000, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_matches_plain(cuda, D, W, dtype):
+    """B4 with a sliding window against its plain version, at the
+    reference's tolerances: float32 on the CUDA cores at every head dim,
+    bfloat16 on the tensor cores at D >= 64 (the CUDA cores below).
+    Windows of 1 (each query its own key), 64, 1000 and one above S; ragged
+    Sq over Skv both ways (with W = 1 only Sq <= Skv leaves every row a
+    key), grouped kv rows; one launch per call."""
+    dt = getattr(torch, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    for Sq, Skv in ((1037, 1100),) + (((1100, 1037),) if W > 1 else ()):
+        q = _t(RNG.normal(size=(4, Sq, D)).astype(np.float32), cuda).to(dt)
+        k = _t(RNG.normal(size=(2, Skv, D)).astype(np.float32), cuda).to(dt)
+        v = _t(RNG.normal(size=(2, Skv, D)).astype(np.float32), cuda).to(dt)
+        n = T_fa.flash_attention_cuda.launches
+        got = T_fa.flash_attention_cuda(q, k, v, True, W)
+        assert T_fa.flash_attention_cuda.launches == n + 1 and got.dtype == dt
+        want = T_fa.flash_attention_plain(q, k, v, True, W)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"Sq {Sq} Skv {Skv}: {m}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_at_gemma3_and_without_causal(cuda, dtype):
+    """gemma3-12b's local layer (16 query rows over 8 kv rows here, S 1536,
+    D 256, W 1024), through the dispatch (a CUDA tensor with a window
+    launches the kernel), and a window without the causal mask."""
+    dt = getattr(torch, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    q = _t(RNG.normal(size=(16, 1536, 256)).astype(np.float32), cuda).to(dt)
+    k = _t(RNG.normal(size=(8, 1536, 256)).astype(np.float32), cuda).to(dt)
+    v = _t(RNG.normal(size=(8, 1536, 256)).astype(np.float32), cuda).to(dt)
+    n = T_fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, True, 1024)
+    assert T_fa.flash_attention_cuda.launches == n + 1
+    torch.testing.assert_close(got.float(), T_fa.flash_attention_plain(q, k, v, True, 1024).float(),
+                               rtol=tol, atol=tol)
+    q, k, v = q[:, :600].contiguous(), k[:, :700].contiguous(), v[:, :700].contiguous()
+    got = T_fa.flash_attention_cuda(q, k, v, False, 100)
+    want = T_fa.flash_attention_plain(q, k, v, False, 100)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_windows_it_cannot_take_on_cuda(cuda):
+    q, k = torch.zeros(2, 12, 64, device=cuda), torch.zeros(2, 8, 64, device=cuda)
+    n = T_fa.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match=">= 0"):
+        T_fa.flash_attention_cuda(q, k, k, True, -1)
+    with pytest.raises(ValueError, match="no key"):
+        ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(), True, 4)
+    assert T_fa.flash_attention_cuda.launches == n
+
+
 @pytest.fixture
 def full_f32():
     """The plain version is the yardstick: its float32 matmuls run in full
@@ -484,6 +539,29 @@ def test_reduced_models_served_on_cuda_match_cpu(cuda, arch):
     torch.testing.assert_close(gl.cpu(), cl, rtol=2e-4, atol=2e-4)
     got = ServeEngine(cfg, gpu, max_seq=64, device=cuda).generate(prompts, 8)
     want = ServeEngine(cfg, cpu, max_seq=64, device="cpu").generate(prompts, 8)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("prompt", [48, 4])
+def test_reduced_gemma3_over_ring_caches_on_cuda_matches_cpu(cuda, prompt):
+    """gemma3-12b cut to 6 float32 layers (5 local, 1 global: grouped ring
+    caches) with a window of 8: prefill logits at 2e-4 with B4 launched
+    once per layer (the window on five), and the greedy tokens of 8 steps
+    identical to the CPU's, after a prompt that wraps the rings and after
+    one that leaves them part empty (ROADMAP C.14's case)."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("gemma3-12b")), n_layers=6,
+                              sliding_window=8)
+    gpu = T_lm.init_params(cfg, seed=0, device=cuda)
+    cpu = T_lm.LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    prompts = RNG.integers(0, cfg.vocab_size, (2, prompt))
+    n = T_fa.flash_attention_cuda.launches
+    gl, gcache = T_lm.prefill(gpu, cfg, torch.from_numpy(prompts).to(cuda), max_seq=prompt + 8)
+    assert T_fa.flash_attention_cuda.launches == n + 6 and "k_loc" in gcache
+    cl, _ = T_lm.prefill(cpu, cfg, torch.from_numpy(prompts), max_seq=prompt + 8)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=2e-4, atol=2e-4)
+    got = ServeEngine(cfg, gpu, max_seq=prompt + 8, device=cuda).generate(prompts, 8)
+    want = ServeEngine(cfg, cpu, max_seq=prompt + 8, device="cpu").generate(prompts, 8)
     assert torch.equal(got.cpu(), want)
 
 

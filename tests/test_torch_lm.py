@@ -1,7 +1,8 @@
 """Port parity for the LM serving path on the CPU: configs, ``layers``,
 the SSD blocks, and reduced olmo-1b / mamba2-780m (plus the dense variants
-qwen1.5-0.5b and gemma-2b) with the reference's weights carried over by
-``params_from_jax``: prefill logits and caches, 8 decode steps, and
+qwen1.5-0.5b, gemma-2b and the sliding-window gemma3-12b, whose 6-layer
+cut decodes over grouped ring caches) with the reference's weights carried
+over by ``params_from_jax``: prefill logits and caches, 8 decode steps, and
 ``ServeEngine.generate``'s greedy tokens.  Inputs come from numpy seeds and
 go through both packages."""
 import dataclasses
@@ -44,16 +45,16 @@ def _np(t):
     return t.to(torch.float32).numpy()
 
 
-def _configs(arch, vocab=None, dtype=None):
+def _configs(arch, vocab=None, dtype=None, **edits):
     """The reference's reduced config and the port's, with the same edits."""
-    edits = {k: v for k, v in (("vocab_size", vocab), ("dtype", dtype)) if v is not None}
+    edits.update({k: v for k, v in (("vocab_size", vocab), ("dtype", dtype)) if v is not None})
     jc = dataclasses.replace(J_cfg.reduced(J_cfg.get_config(arch)), **edits)
     tc = dataclasses.replace(T_cfg.reduced(T_cfg.get_config(arch)), **edits)
     return jc, tc
 
 
-def _models(arch, vocab=None, dtype=None, seed=0):
-    jc, tc = _configs(arch, vocab, dtype)
+def _models(arch, vocab=None, dtype=None, seed=0, **edits):
+    jc, tc = _configs(arch, vocab, dtype, **edits)
     params = J_lm.init_params(jc, jax.random.PRNGKey(seed))
     model = params_from_jax(tc, jax.tree.map(np.asarray, params), device="cpu")
     return jc, tc, params, model
@@ -75,8 +76,7 @@ def test_configs_are_the_reference_configs(arch):
 @pytest.mark.parametrize("arch", J_cfg.ARCH_IDS)
 def test_families_not_ported_raise(arch):
     cfg = T_cfg.reduced(T_cfg.get_config(arch))
-    served = (cfg.family in ("dense", "ssm") and cfg.sliding_window is None
-              and cfg.logit_softcap is None)
+    served = cfg.family in ("dense", "ssm") and cfg.logit_softcap is None  # gemma3-12b too
     if served:
         T_lm.LM(cfg, device="cpu")
     else:
@@ -87,8 +87,7 @@ def test_families_not_ported_raise(arch):
 def test_unported_options_raise_at_the_entry_points():
     cfg = T_cfg.reduced(T_cfg.get_config("olmo-1b"))
     model = T_lm.LM(cfg, device="cpu")
-    for edit, word in ((dict(logit_softcap=30.0), "softcap"), (dict(sliding_window=8), "sliding"),
-                       (dict(causal=False), "non-causal")):
+    for edit, word in ((dict(logit_softcap=30.0), "softcap"), (dict(causal=False), "non-causal")):
         with pytest.raises(NotImplementedError, match=word):
             T_lm.prefill(model, dataclasses.replace(cfg, **edit),
                          torch.zeros(1, 4, dtype=torch.int64))
@@ -123,19 +122,29 @@ def test_rope_matches(start):
     np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("Hq,Hkv,Sq,Skv,q0", [(4, 2, 1, 24, 13), (4, 4, 9, 9, 0), (6, 2, 3, 16, 5)])
-def test_naive_attention_matches(Hq, Hkv, Sq, Skv, q0):
+@pytest.mark.parametrize("Hq,Hkv,Sq,Skv,q0,window,is_global", [
+    pytest.param(*case, None, False, id="-".join(map(str, case)))
+    for case in ((4, 2, 1, 24, 13), (4, 4, 9, 9, 0), (6, 2, 3, 16, 5))
+] + [
+    pytest.param(4, 2, 1, 24, 13, 8, False, id="local-window-8"),
+    pytest.param(4, 4, 9, 9, 0, 1, False, id="local-window-1"),
+    pytest.param(6, 2, 3, 16, 5, 4, False, id="local-window-4"),
+    pytest.param(6, 2, 3, 16, 5, 4, True, id="global-window-4"),
+])
+def test_naive_attention_matches(Hq, Hkv, Sq, Skv, q0, window, is_global):
     """Grouped decode attention against a cache (positions past the query
-    masked), 2e-5."""
+    masked; on a local layer also those at or below ``q_pos − window``),
+    2e-5."""
     rng = np.random.default_rng(Hq * Sq)
     q = rng.normal(size=(2, Sq, Hq, 16)).astype(np.float32)
     k = rng.normal(size=(2, Skv, Hkv, 16)).astype(np.float32)
     v = rng.normal(size=(2, Skv, Hkv, 16)).astype(np.float32)
     qp = np.arange(q0, q0 + Sq, dtype=np.int32)
     kp = np.arange(Skv, dtype=np.int32)
-    got = T_L.naive_attention(_t(q), _t(k), _t(v), _t(qp), _t(kp), True).numpy()
+    got = T_L.naive_attention(_t(q), _t(k), _t(v), _t(qp), _t(kp), True, window,
+                              is_global).numpy()
     want = J_L.naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                               jnp.asarray(qp), jnp.asarray(kp), True, None, False)
+                               jnp.asarray(qp), jnp.asarray(kp), True, window, is_global)
     np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
@@ -183,7 +192,11 @@ def test_ssd_decode_step_matches():
 # reduced models, the reference's weights
 # --------------------------------------------------------------------------
 MODELS = [("olmo-1b", None), ("mamba2-780m", None), ("qwen1.5-0.5b", None), ("gemma-2b", None),
-          ("mamba2-780m", 250)]  # 250 → 256 padded vocab rows: the logit mask
+          ("mamba2-780m", 250),  # 250 → 256 padded vocab rows: the logit mask
+          ("gemma3-12b", None)]  # 2 local layers, window 32: the full cache
+#: gemma3-12b cut to 6 layers (5 local, 1 global: grouped ring caches) with
+#: a window of 8, so the window bites and the ring wraps
+GROUPED = dict(n_layers=6, sliding_window=8)
 
 
 def _tokens(cfg, shape, seed):
@@ -205,18 +218,23 @@ def _compare_caches(jcache, tcache, tol, relative_to_leaf=False):
                                        err_msg=key)
 
 
-# (arch, vocab, prompt shape, max_seq): the last case asks for fewer cache
-# positions than the prompt has, and the reference then keeps all of them
-PREFILL_CASES = [pytest.param(a, v, (2, 32), 40, id=f"{a}-{v}") for a, v in MODELS] + [
-    pytest.param("olmo-1b", None, (1, 12), 8, id="olmo-1b-max_seq-below-prompt")]
+# (arch, vocab, prompt shape, max_seq, edits): the olmo case below the
+# prompt asks for fewer cache positions than the prompt has, and the
+# reference then keeps all of them; the grouped gemma3 prompts fill the
+# 8-slot rings (12 tokens roll them by 4)
+PREFILL_CASES = [pytest.param(a, v, (2, 32), 40, {}, id=f"{a}-{v}") for a, v in MODELS] + [
+    pytest.param("olmo-1b", None, (1, 12), 8, {}, id="olmo-1b-max_seq-below-prompt")] + [
+    pytest.param("gemma3-12b", None, (2, S), S + 8, GROUPED, id=f"gemma3-12b-grouped-{S}")
+    for S in (12, 16)]
 
 
-@pytest.mark.parametrize("arch,vocab,prompt,max_seq", PREFILL_CASES)
-def test_prefill_and_decode_match(arch, vocab, prompt, max_seq):
-    """Prefill logits and every cache leaf (shapes included), then up to 8
-    decode steps as the cache has room for (logits and caches), at
-    F32_TOL.  The mamba prompt spans two 16-step chunks."""
-    jc, tc, params, model = _models(arch, vocab)
+@pytest.mark.parametrize("arch,vocab,prompt,max_seq,edits", PREFILL_CASES)
+def test_prefill_and_decode_match(arch, vocab, prompt, max_seq, edits):
+    """Prefill logits and every cache leaf (shapes included: the grouped
+    rings and global caches too), then up to 8 decode steps as the cache
+    has room for (logits and caches), at F32_TOL.  The mamba prompt spans
+    two 16-step chunks."""
+    jc, tc, params, model = _models(arch, vocab, **edits)
     toks = _tokens(jc, prompt, 0)
     B, S = prompt
     jl, jcache = J_lm.prefill(params, jc, jnp.asarray(toks), max_seq=max_seq)
@@ -234,6 +252,81 @@ def test_prefill_and_decode_match(arch, vocab, prompt, max_seq):
     _compare_caches(jcache, tcache, F32_TOL)
     if vocab is not None:
         assert (tl[..., vocab:] == -1e30).all()
+
+
+def test_grouped_layout_is_the_reference_layout():
+    """gemma3-12b's flags and grouping, published and cut: 40 local and 8
+    global layers at full depth; the 6-layer cut grouped, the 2-layer
+    reduced config not (2 % 6 != 0)."""
+    for edits in ({}, dict(n_layers=6), dict(n_layers=2)):
+        jc = dataclasses.replace(J_cfg.get_config("gemma3-12b"), **edits)
+        tc = dataclasses.replace(T_cfg.get_config("gemma3-12b"), **edits)
+        assert T_lm.layer_flags(tc) == np.asarray(J_lm.layer_flags(jc)).tolist()
+        assert T_lm.grouped_decode(tc) == J_lm.grouped_decode(jc)
+    full = T_cfg.get_config("gemma3-12b")
+    assert T_lm.layer_flags(full).count(False) == 40 and T_lm.grouped_decode(full)
+    tc = T_cfg.reduced(T_cfg.get_config("olmo-1b"))
+    assert T_lm.layer_flags(tc) == [True] * tc.n_layers and not T_lm.grouped_decode(tc)
+
+
+def test_windowed_full_cache_decode_matches_reference_and_forward():
+    """gemma3-12b as ``reduced()`` gives it (2 layers, both local: not a
+    multiple of the global interval, so the full cache) with a window of 8,
+    mirroring the reference's ``test_multi_step_decode_matches_forward``:
+    16 prompt tokens, then 8 decode steps, each step's logits against the
+    reference's decode at F32_TOL, and the last against the reference's
+    ``forward`` over all 24 tokens at F32_TOL."""
+    jc, tc, params, model = _models("gemma3-12b", seed=2, sliding_window=8)
+    assert not T_lm.grouped_decode(tc)
+    toks = _tokens(jc, (2, 24), 7)
+    _, jcache = J_lm.prefill(params, jc, jnp.asarray(toks[:, :16]), max_seq=24)
+    _, tcache = T_lm.prefill(model, tc, _t(toks[:, :16]), max_seq=24)
+    ref_decode = jax.jit(J_lm.decode_step, static_argnums=1)
+    for t in range(16, 24):
+        jl, jcache = ref_decode(params, jc, jcache, jnp.asarray(toks[:, t : t + 1]))
+        tl, tcache = T_lm.decode_step(model, tc, tcache, _t(toks[:, t : t + 1]))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), err_msg=f"position {t}", **F32_TOL)
+    h, _ = J_lm.forward(params, jc, tokens=jnp.asarray(toks))
+    full = h[:, -1].astype(jnp.float32) @ J_lm.lm_head_weight(params, jc).astype(jnp.float32)
+    np.testing.assert_allclose(tl[:, 0].numpy(), np.asarray(full), **F32_TOL)
+
+
+def test_ring_decode_masks_unwritten_slots_where_the_reference_does_not():
+    """ROADMAP C.14: a 4-token prompt leaves 4 of the 8 ring slots
+    unwritten.  The reference gives slot i position i − 8, which passes its
+    causal and window tests, so its decode attends to zeroed keys; the
+    port masks those slots.  At each of 8 steps the port's logits equal the
+    reference's ``forward`` over the grown sequence at F32_TOL, and the
+    reference's decode is off from it by more than 1e-2."""
+    jc, tc, params, model = _models("gemma3-12b", **GROUPED)
+    toks = _tokens(jc, (2, 12), 3)
+    _, jcache = J_lm.prefill(params, jc, jnp.asarray(toks[:, :4]), max_seq=12)
+    _, tcache = T_lm.prefill(model, tc, _t(toks[:, :4]), max_seq=12)
+    # causal: position t's hidden state over all 12 tokens is the forward
+    # of the first t + 1
+    h, _ = J_lm.forward(params, jc, tokens=jnp.asarray(toks))
+    forward = np.asarray(h.astype(jnp.float32) @ J_lm.lm_head_weight(params, jc).astype(jnp.float32))
+    ref_decode = jax.jit(J_lm.decode_step, static_argnums=1)
+    ref_off = []
+    for t in range(4, 12):
+        jl, jcache = ref_decode(params, jc, jcache, jnp.asarray(toks[:, t : t + 1]))
+        tl, tcache = T_lm.decode_step(model, tc, tcache, _t(toks[:, t : t + 1]))
+        want = forward[:, t]
+        np.testing.assert_allclose(tl[:, 0].numpy(), want, err_msg=f"position {t}", **F32_TOL)
+        ref_off.append(float(np.abs(np.asarray(jl)[:, 0] - want).max()))
+    assert min(ref_off) > 1e-2, ref_off
+
+
+def test_serve_engine_over_ring_caches_matches_reference():
+    """``ServeEngine.generate`` on the grouped 6-layer cut, unchanged: 12
+    greedy tokens after 12-token prompts (the rings full, so C.14 does not
+    arise) equal the reference engine's."""
+    jc, tc, params, model = _models("gemma3-12b", seed=3, **GROUPED)
+    prompts = _tokens(jc, (3, 12), 5)
+    want = np.asarray(J_Engine(jc, params, max_seq=24).generate(jnp.asarray(prompts),
+                                                                 max_new_tokens=12))
+    got = T_Engine(tc, model, max_seq=24, device="cpu").generate(_t(prompts), max_new_tokens=12)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_decode_past_a_full_cache_raises_where_the_reference_clamps():
@@ -300,9 +393,9 @@ def test_prefill_attention_goes_through_b4():
     calls = []
     plain = T_fa.flash_attention_plain
 
-    def spy(q, k, v, causal=True):
+    def spy(q, k, v, causal=True, window=0):
         calls.append((tuple(q.shape), causal))
-        return plain(q, k, v, causal)
+        return plain(q, k, v, causal, window)
 
     launches = T_fa.flash_attention_cuda.launches
     with pytest.MonkeyPatch.context() as mp:
@@ -310,6 +403,23 @@ def test_prefill_attention_goes_through_b4():
         T_lm.prefill(model, tc, _t(_tokens(tc, (2, 12), 0)))
     assert calls == [((2 * tc.n_heads, 12, tc.head_dim), True)] * tc.n_layers
     assert T_fa.flash_attention_cuda.launches == launches
+
+
+def test_local_layers_call_b4_with_the_window():
+    """The grouped 6-layer cut: one B4 call per layer, the window on the
+    five local layers and none (0) on the global one."""
+    _, tc, _, model = _models("gemma3-12b", **GROUPED)
+    windows = []
+    plain = T_fa.flash_attention_plain
+
+    def spy(q, k, v, causal=True, window=0):
+        windows.append(window)
+        return plain(q, k, v, causal, window)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(T_fa, "flash_attention_plain", spy)
+        T_lm.prefill(model, tc, _t(_tokens(tc, (2, 12), 0)))
+    assert windows == [8, 8, 8, 8, 8, 0]
 
 
 def test_init_params_follows_the_reference_rules():

@@ -1,6 +1,7 @@
 """Port parity for kernels B4 and B5 on the CPU: each plain PyTorch version
 against ``repro``'s jnp oracle and against the Pallas kernel in interpret
-mode, over the shapes and tolerances of tests/test_kernels.py, and the
+mode, over the shapes and tolerances of tests/test_kernels.py, B4's
+sliding window against the reference model's masked attention, and the
 port's chunked SSD against the reference's.  The CUDA kernels themselves are
 held against the same plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
@@ -14,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import flash_attention as fak  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels import ssd_scan as ssdk  # noqa: E402
+from repro.models import layers as J_L  # noqa: E402
 from repro.models import ssm as J_ssm  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -85,6 +87,63 @@ def test_flash_attention_plain_ragged_and_grouped(Sq, Skv, G, causal):
     want = ref.attention_ref(jnp.asarray(q), jnp.asarray(np.repeat(k, G, 0)),
                              jnp.asarray(np.repeat(v, G, 0)), causal=causal)
     np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("W", [1, 7, 24])  # 24 = S: nothing masked beyond causal
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_attention_plain_window_matches_naive_attention(W, G):
+    """B4 with a window W (a local layer's prefill): the plain version on
+    (batch·head, S, D) rows against the reference model's
+    ``naive_attention(..., causal=True, window=W, is_global=False)`` on
+    (B, S, H, D) at positions 0..S−1, at 2e-5 (float32; the scale is
+    applied alike)."""
+    rng = np.random.default_rng(W * 10 + G)
+    B, S, Hkv, D = 2, 24, 2, 16
+    q = rng.normal(size=(B, S, Hkv * G, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+
+    def rows(a):  # (B, S, H, D) → (B·H, S, D), as the model's prefill
+        return _t(a.transpose(0, 2, 1, 3).reshape(-1, S, D))
+
+    got = T_fa.flash_attention_plain(rows(q), rows(k), rows(v), True, W)
+    got = got.numpy().reshape(B, Hkv * G, S, D).transpose(0, 2, 1, 3)
+    pos = jnp.arange(S, dtype=jnp.int32)
+    want = J_L.naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, pos, True, W,
+                               False)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+    if W < S:  # the window bites: without it the rows differ
+        full = T_fa.flash_attention_plain(rows(q), rows(k), rows(v), True).numpy()
+        assert not np.allclose(full.reshape(B, Hkv * G, S, D).transpose(0, 2, 1, 3), want)
+
+
+@pytest.mark.parametrize("Sq,Skv,W,causal", [(26, 20, 8, True), (20, 30, 5, False)])
+def test_flash_attention_plain_window_ragged(Sq, Skv, W, causal):
+    """Sq != Skv (indices compared with no offset) and a window without the
+    causal mask (keys j > i − W only, the reference's ``_mask_bias`` with
+    ``causal=False``), at 2e-5."""
+    rng = np.random.default_rng(Sq + Skv)
+    q = rng.normal(size=(1, Sq, 2, 16)).astype(np.float32)
+    k = rng.normal(size=(1, Skv, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(1, Skv, 2, 16)).astype(np.float32)
+    got = T_fa.flash_attention_plain(*(_t(a[0].transpose(1, 0, 2)) for a in (q, k, v)), causal, W)
+    want = J_L.naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.arange(Sq, dtype=jnp.int32), jnp.arange(Skv, dtype=jnp.int32),
+                               causal, W, False)
+    np.testing.assert_allclose(got.numpy().transpose(1, 0, 2), np.asarray(want)[0],
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_refuses_windows_it_cannot_take():
+    """A negative window, and one that leaves the last query rows with no
+    key (Sq >= Skv + W), raise on the CPU path as they do on the card
+    (tests/test_torch_cuda.py)."""
+    q, k = torch.zeros(2, 12, 16), torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError, match=">= 0"):
+        ops.flash_attention(q, k, k, True, -1)
+    with pytest.raises(ValueError, match="rows 11..11 of 12 with no key"):
+        ops.flash_attention(q, k, k, True, 4)
+    assert ops.flash_attention(q, k, k, True, 5).shape == q.shape
 
 
 # --------------------------------------------------------------------------
