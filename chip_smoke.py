@@ -23,28 +23,32 @@
    ``BandStatistics``, its state held against float64 numpy); for each,
    one interior stripe's stages (input pull, ``generate``, device-to-host
    copy, in CUDA events) and a ``torch.profiler`` run (device idle share);
-4. serves olmo-1b, gemma-2b, mamba2-780m and gemma3-12b at their published
-   widths and depths from ``repro_torch.serve.ServeEngine`` on ``cuda``
-   (random bfloat16 weights from a seed): 4 requests of 1024 prompt
-   tokens, 32 greedy tokens each, ``max_seq`` 1056; gemma3-12b (window
-   1024 on 40 of its 48 layers, ring caches in decode) takes 4 requests of
-   1536 tokens (the window bites in prefill and the rings wrap) and 4 of
-   512 (the rings part empty, ROADMAP C.14's case), 32 greedy tokens each,
-   ``max_seq`` 1568.  The launch counts are set to 0 just before each
-   ``generate`` call and read just after (B4 once per olmo, gemma and
-   gemma3 layer in the prefill and never in a decode step, B5 once per
-   mamba layer); each model is held against the port's CPU run of the same
-   weights on one 256-token request (gemma3-12b: its first 6 layers, 5
-   local and 1 global, at full width, on one request of 1100 tokens and
-   one of 300, 8 steps each): last-position logits, greedy tokens; one
-   prefill and 8 decode steps are profiled (``torch.profiler``), and the
-   peak memory of the main path is read;
+4. serves olmo-1b, gemma-2b, mamba2-780m, gemma3-12b and hymba-1.5b at
+   their published widths and depths from ``repro_torch.serve.ServeEngine``
+   on ``cuda`` (random bfloat16 weights from a seed): 4 requests of 1024
+   prompt tokens, 32 greedy tokens each, ``max_seq`` 1056; gemma3-12b
+   (window 1024 on 40 of its 48 layers, ring caches in decode) and
+   hymba-1.5b (attention and SSD heads in every block, window 1024 on 30
+   of its 32 layers, ring caches and grouped conv/state leaves in decode)
+   take 4 requests of 1536 tokens (the window bites in prefill and the
+   rings wrap) and 4 of 512 (the rings part empty, ROADMAP C.14's case),
+   32 greedy tokens each, ``max_seq`` 1568.  The launch counts are set to
+   0 just before each ``generate`` call and read just after (B4 once per
+   olmo, gemma and gemma3 layer in the prefill and never in a decode step,
+   B5 once per mamba layer, both once per hymba layer); each model is held
+   against the port's CPU run of the same weights on one 256-token request
+   (gemma3-12b: its first 6 layers, 5 local and 1 global, hymba-1.5b: its
+   first 16, 15 local and 1 global, at full width, on one request of 1100
+   tokens and one of 300, 8 steps each): last-position logits, greedy
+   tokens; one prefill and 8 decode steps are profiled
+   (``torch.profiler``), and the peak memory of the main path is read;
 5. holds every kernel against its plain PyTorch version on the card, B1-B3
    on the inputs of one stripe of their run and B4/B5 on the inputs of layer
    0 of the served prefill (B4 at olmo-1b's and at gemma-2b's shape, and at
-   gemma3-12b's with its window (layer 0) and without (layer 5); B5's
-   outputs over each cell's largest value, and a one-TF32-pass control must
-   fail that check), and times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
+   gemma3-12b's and hymba-1.5b's with the window (layer 0) and without
+   (their first global layer); B5 at mamba2-780m's and hymba-1.5b's shapes,
+   its outputs over each cell's largest value, and a one-TF32-pass control
+   must fail that check), and times both (and, for B4, ``F.scaled_dot_product_attention``) with CUDA
    events.  B2 must equal its plain version bit for bit, on the P2 stripe
    and on a uniform-random band of the stripe's shape, and is timed on both
    (the ``glcm_bands`` line, with the kernel instance's occupancy).  B3
@@ -278,17 +282,23 @@ TOL = {  # the reference's own tolerances (tests/test_kernels.py)
 }
 P9_SEEDS = (0, 1, 2)  # the composite's three dates
 #: the serving phase: batches of requests per model, at published widths
-SERVE_MODELS = ("olmo-1b", "gemma-2b", "mamba2-780m", "gemma3-12b")
+SERVE_MODELS = ("olmo-1b", "gemma-2b", "mamba2-780m", "gemma3-12b", "hymba-1.5b")
 BATCH, PROMPT, NEW_TOKENS, MAX_SEQ = 4, 1024, 32, 1056
 CHECK_PROMPT = 256  # the one request held against the CPU run: one SSD chunk
-#: gemma3-12b: prompts past its window (the rings wrap; prefill rolls them
-#: by 1536 mod 1024 = 512) and short of it (the rings part empty)
-SERVE_PROMPTS = {"gemma3-12b": (1536, 512)}
-SERVE_MAX_SEQ = {"gemma3-12b": 1568}
-#: the CPU check of gemma3-12b: its first layers (5 local, 1 global) at full
-#: width, one request past the window (the ring rolled by 76) and one short
-#: of it, 8 greedy steps each, with the served max_seq (1024-slot rings)
-CPU_CUT = {"gemma3-12b": dict(n_layers=6, prompts=(1100, 300), steps=8)}
+#: the windowed models: prompts past the window (the rings wrap; prefill
+#: rolls them by 1536 mod 1024 = 512) and short of it (the rings part empty)
+SERVE_PROMPTS = {"gemma3-12b": (1536, 512), "hymba-1.5b": (1536, 512)}
+SERVE_MAX_SEQ = {"gemma3-12b": 1568, "hymba-1.5b": 1568}
+#: the CPU check of the windowed models: their first layers (gemma3-12b 5
+#: local and 1 global, hymba-1.5b one group of 15 local and 1 global) at
+#: full width, one request past the window (the ring rolled by 76; hymba's
+#: SSD chunk 220) and one short of it (chunk 150), 8 greedy steps each, with
+#: the served max_seq (1024-slot rings)
+CPU_CUT = {"gemma3-12b": dict(n_layers=6, prompts=(1100, 300), steps=8),
+           "hymba-1.5b": dict(n_layers=16, prompts=(1100, 300), steps=8)}
+#: the hand kernels on each family's prefill path, each once per layer
+FAMILY_KERNELS = {"dense": ("flash_attention",), "ssm": ("ssd_intra_chunk",),
+                  "hybrid": ("flash_attention", "ssd_intra_chunk")}
 KERNELS = {
     "pansharpen": dict(
         source="src/repro_torch/kernels/csrc/pansharpen.cu",
@@ -2127,13 +2137,15 @@ def kernel_line(rows, launch_counts) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# serving: olmo-1b (B4) and mamba2-780m (B5)
+# serving: olmo-1b, gemma-2b, gemma3-12b (B4), mamba2-780m (B5) and
+# hymba-1.5b (both)
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def first_call_args(module, name: str):
     """Record the tensor arguments of the first call to ``module.name``
     with each ``window`` keyword (absent: 0) while the block runs: the
-    model's layer 0, and for gemma3-12b also its first global layer."""
+    model's layer 0, and for a windowed model also its first global
+    layer."""
     orig, box = getattr(module, name), {}
 
     def record(*args, **kwargs):
@@ -2244,10 +2256,10 @@ def layer_cut(model, cfg, n_layers: int, device: str) -> tuple:
 def serve_model(arch: str) -> tuple:
     """Serve ``arch`` at its published widths on the card, one ``generate``
     call per prompt length of :data:`SERVE_PROMPTS`; returns the run's
-    record and the inputs of the first call to the kernel on its path, by
-    window (layer 0, and gemma3-12b's first global layer)."""
+    record and, for each kernel on its path, the inputs of its first call
+    by window (layer 0, and a windowed model's first global layer)."""
     cfg = TC.get_config(arch)
-    kernel = "flash_attention" if cfg.family == "dense" else "ssd_intra_chunk"
+    kernels = FAMILY_KERNELS[cfg.family]
     max_seq = SERVE_MAX_SEQ.get(arch, MAX_SEQ)
     t0 = time.perf_counter()
     model = TL.init_params(cfg, seed=0, device="cuda")
@@ -2259,8 +2271,9 @@ def serve_model(arch: str) -> tuple:
                for n in lengths]
     engine = ServeEngine(cfg, model, max_seq=max_seq, device="cuda")
 
-    # warm-up (CUDA's lazy module loading), recording the kernel's inputs
-    with first_call_args(ops, kernel) as box:
+    # warm-up (CUDA's lazy module loading), recording the kernels' inputs
+    with contextlib.ExitStack() as stack:
+        box = {k: stack.enter_context(first_call_args(ops, k)) for k in kernels}
         engine.generate(batches[0], max_new_tokens=2)
     torch.cuda.synchronize()
 
@@ -2321,7 +2334,7 @@ def serve_model(arch: str) -> tuple:
         del cut_model
 
     record = dict(
-        model=arch, kernel=kernel, init_s=init_s, batch=BATCH, new_tokens=NEW_TOKENS,
+        model=arch, kernels=list(kernels), init_s=init_s, batch=BATCH, new_tokens=NEW_TOKENS,
         max_seq=max_seq, **runs[0], batches=runs[1:], launches=counts,
         b4_launches_by_window={str(w): n for w, n in sorted(by_window.items())},
         # _logits casts the whole head to float32 on every step (A.15 item 3)
@@ -2441,17 +2454,27 @@ def b4_row(cell: str, fa_args, window: int = 0, layer: int = 0) -> tuple:
 
 
 def lm_kernel_rows(captured: dict) -> list:
-    """B4 (at olmo-1b's and gemma-2b's shapes, and gemma3-12b's with its
-    window and without) and B5 against their plain versions on the inputs
-    of the served prefill, and their times (20 CUDA-event-timed launches
-    each)."""
-    rows = [b4_row(arch, captured[arch][0]) for arch in ("olmo-1b", "gemma-2b")]
-    g3 = TC.get_config("gemma3-12b")
-    rows.append(b4_row("gemma3-12b local", captured["gemma3-12b"][g3.sliding_window],
-                       g3.sliding_window))
-    rows.append(b4_row("gemma3-12b global", captured["gemma3-12b"][0], 0,
-                       TL.layer_flags(g3).index(True)))
-    ssd_args = captured["mamba2-780m"][0]
+    """B4 (at olmo-1b's and gemma-2b's shapes, and gemma3-12b's and
+    hymba-1.5b's with the window and without) and B5 (at mamba2-780m's and
+    hymba-1.5b's shapes) against their plain versions on the inputs of the
+    served prefill, and their times (20 CUDA-event-timed launches each)."""
+    rows = [b4_row(arch, captured[arch]["flash_attention"][0])
+            for arch in ("olmo-1b", "gemma-2b")]
+    for arch in ("gemma3-12b", "hymba-1.5b"):
+        cfg = TC.get_config(arch)
+        fa_args = captured[arch]["flash_attention"]
+        rows.append(b4_row(f"{arch} local", fa_args[cfg.sliding_window], cfg.sliding_window))
+        rows.append(b4_row(f"{arch} global", fa_args[0], 0, TL.layer_flags(cfg).index(True)))
+    for arch in ("mamba2-780m", "hymba-1.5b"):
+        rows.append(b5_row(arch, captured[arch]["ssd_intra_chunk"][0]))
+    return rows
+
+
+def b5_row(cell: str, ssd_args) -> tuple:
+    """B5 against its plain version on layer 0's cells of ``cell``'s served
+    prefill, each cell's outputs over its largest plain output, with a
+    one-TF32-pass control that the check must fail; its time beside the
+    plain version's."""
     x, dt, cum, B, C = ssd_args
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("B5's plain version must run its matmuls in full float32")
@@ -2481,8 +2504,9 @@ def lm_kernel_rows(captured: dict) -> list:
                          tf32_control_score=tol_score("ssd_intra_chunk", c, w))
     chk["max_abs_err"] = max(chk[part]["max_abs_err"] for part in ("y", "states"))
     if max(chk[part]["tf32_control_score"] for part in ("y", "states")) <= 1.0:
-        raise AssertionError(f"ssd_intra_chunk: a one-TF32-pass control passes the scaled "
-                             f"check, so the check cannot tell 3xTF32 from one pass: {chk}")
+        raise AssertionError(f"ssd_intra_chunk at {cell} (N = {B.shape[2]}): a one-TF32-pass "
+                             f"control passes the scaled check, so the check cannot tell "
+                             f"3xTF32 from one pass here: {chk}")
     ms = cuda_ms(lambda: ssd_k.ssd_intra_chunk_cuda(*ssd_args))
     plain_ms = cuda_ms(lambda: ssd_k.ssd_intra_chunk_plain(*ssd_args))
     cells, L, P = x.shape
@@ -2493,10 +2517,8 @@ def lm_kernel_rows(captured: dict) -> list:
     # tensor cores (3xTF32 holds float32's precision, one pass does not)
     ops_n = rows_bc * pairs * 2 * N + cells * (pairs * 2 * P + L * 2 * N * P)
     bnd = bound(nbytes(x, dt, cum, B, C, y, st), 3 * ops_n, TF32_TENSOR_FLOPS_PER_S)
-    rows.append(("ssd_intra_chunk", "mamba2-780m",
-                 f"layer 0 cells x {tuple(x.shape)}, B/C {tuple(B.shape)}",
-                 chk, ms, plain_ms, bnd, None))
-    return rows
+    return ("ssd_intra_chunk", cell, f"layer 0 cells x {tuple(x.shape)}, B/C {tuple(B.shape)}",
+            chk, ms, plain_ms, bnd, None)
 
 
 def main(argv: list) -> int:
@@ -2592,11 +2614,13 @@ def main(argv: list) -> int:
         print(json.dumps({"serve": record}), flush=True)
         cfg = TC.get_config(arch)
         prefills = len(SERVE_PROMPTS.get(arch, (PROMPT,)))  # one per generate call
-        others = {k: n for k, n in record["launches"].items() if k != record["kernel"]}
-        if record["launches"][record["kernel"]] != prefills * cfg.n_layers or any(others.values()):
+        path = record["kernels"]
+        others = {k: n for k, n in record["launches"].items() if k not in path}
+        if (any(record["launches"][k] != prefills * cfg.n_layers for k in path)
+                or any(others.values())):
             raise AssertionError(f"{arch}: launches {record['launches']}, expected "
-                                 f"{record['kernel']} once per layer ({cfg.n_layers}) in each "
-                                 f"of {prefills} prefills, none in decode, and no other")
+                                 f"{' and '.join(path)} once per layer ({cfg.n_layers}) in "
+                                 f"each of {prefills} prefills, none in decode, and no other")
         if cfg.sliding_window is not None:  # B4's rows split the launches by window
             local = TL.layer_flags(cfg).count(False)
             by_window = record["b4_launches_by_window"]

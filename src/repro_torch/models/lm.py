@@ -1,4 +1,5 @@
-"""The LM for serving: the dense and ssm families, driven by ``ModelConfig``.
+"""The LM for serving: the dense, ssm and hybrid families, driven by
+``ModelConfig``.
 Counterpart of ``repro.models.lm`` (its serving half: ``init_params``,
 ``prefill``, ``decode_step``).
 
@@ -9,7 +10,8 @@ kernel B4 and the SSD chunk block kernel B5, both through
 reference.  The cache is a dict laid out like the reference's (per-layer
 leaves stacked on a leading L axis; for a sliding-window model whose depth
 is a multiple of its global interval g, grouped (L/g, g−1) local rings of
-the window's length and (L/g, 1) global caches), updated in place by
+the window's length and (L/g, 1) global caches, and the hybrid family's
+conv/state leaves on the same (L/g, g) lead), updated in place by
 ``decode_step`` (the reference returns a new one) so a step copies no cache.
 
 Families and options the port does not serve yet raise
@@ -41,11 +43,10 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not serve."""
     missing = {
         "moe": "the moe family (expert routing)",
-        "hybrid": "the hybrid family (parallel attention and SSD heads)",
         "vlm": "the vlm family (vision frontend)",
         "audio": "the audio family (audio frontend, encoder-only)",
     }.get(cfg.family)
-    if missing is None and cfg.family not in ("dense", "ssm"):
+    if missing is None and cfg.family not in ("dense", "ssm", "hybrid"):
         missing = f"the {cfg.family} family"
     if missing is None and cfg.logit_softcap is not None:
         missing = "attention logit softcapping"
@@ -81,10 +82,11 @@ def layer_flags(cfg: ModelConfig) -> list:
 # ---------------------------------------------------------------------------
 def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Per-layer parameter shapes, as ``repro.models.lm._dense_block_shapes``
-    gives them for the dense and ssm families."""
+    gives them: attention and the MLP for every family but ssm, the SSD
+    leaves for ssm and hybrid."""
     d = cfg.d_model
     s: Dict[str, Tuple[int, ...]] = {}
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         hd, nh, nkv, f = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
         s.update(wq=(d, nh * hd), wk=(d, nkv * hd), wv=(d, nkv * hd), wo=(nh * hd, d))
         if cfg.attn_bias:
@@ -92,7 +94,7 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         s.update(wg=(d, f), wd_=(f, d))
         if cfg.mlp_type in ("swiglu", "geglu"):
             s.update(wu=(d, f))
-    else:
+    if cfg.family in ("ssm", "hybrid"):
         di, H, N, K, G = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state, cfg.conv_kernel, 1
         s.update(
             swz=(d, di), swx=(d, di), swB=(d, G * N), swC=(d, G * N), swdt=(d, H),
@@ -265,17 +267,23 @@ def _ssm(h, blk: Block, cfg: ModelConfig, conv_cache=None, ssm_state=None):
 def _block(h, blk: Block, cfg: ModelConfig, positions, caches: Dict, pos: int = 0,
            is_global: bool = True, ring: bool = False):
     """One block; ``caches`` holds this layer's kv / conv / state entries
-    (empty in the prefill).  Returns (h, new_caches)."""
+    (empty in the prefill).  A hybrid block runs attention and the SSD
+    mixer on the same normed input and averages them in the model's dtype,
+    as the reference does.  Returns (h, new_caches)."""
     sc1, sc2 = getattr(blk, "norm1", None), getattr(blk, "norm2", None)
-    if cfg.family == "ssm":
-        out, (cv, st) = _ssm(L.norm(h, sc1, cfg.norm_type), blk, cfg,
-                             caches.get("conv"), caches.get("state"))
-        return h + out, {"conv": cv, "state": st}
-    out, kv = _attn(L.norm(h, sc1, cfg.norm_type), blk, cfg, positions, is_global,
-                    caches.get("kv"), pos, ring)
+    mixer_in = L.norm(h, sc1, cfg.norm_type)
+    new_caches: Dict = {}
+    if cfg.family != "ssm":
+        out, new_caches["kv"] = _attn(mixer_in, blk, cfg, positions, is_global,
+                                      caches.get("kv"), pos, ring)
+    if cfg.family in ("ssm", "hybrid"):
+        s_out, (new_caches["conv"], new_caches["state"]) = _ssm(
+            mixer_in, blk, cfg, caches.get("conv"), caches.get("state"))
+        out = s_out if cfg.family == "ssm" else 0.5 * (out + s_out)
     h = h + out
-    h = h + _mlp(L.norm(h, sc2, cfg.norm_type), blk, cfg)
-    return h, {"kv": kv}
+    if cfg.family != "ssm":
+        h = h + _mlp(L.norm(h, sc2, cfg.norm_type), blk, cfg)
+    return h, new_caches
 
 
 def embed_tokens(params: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -308,27 +316,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Dict:
     """Zeroed cache: k/v (L,B,max_seq,nkv,hd) for attention, or when
     :func:`grouped_decode` k_loc/v_loc (L/g,g−1,B,Wa,nkv,hd) with Wa =
     min(window, max_seq) and k_glob/v_glob (L/g,1,B,max_seq,nkv,hd); conv
-    (L,B,K−1,C) and state (L,B,H,N,P) float32 for SSD; and ``pos``."""
+    (lead,B,K−1,C) and state (lead,B,H,N,P) float32 for SSD, where lead is
+    (L/g, g) when grouped and (L,) otherwise; and ``pos``."""
     dt = _dtype(cfg)
     dev = resolve_device(device)
     Ln = cfg.n_layers
+    grouped = grouped_decode(cfg)
+    g = cfg.global_interval if grouped else 1
+    lead = (Ln // g, g) if grouped else (Ln,)
     cache: Dict = {"pos": 0}
     if cfg.family != "ssm":
         tail = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        if grouped_decode(cfg):
-            g = cfg.global_interval
+        if grouped:
             ring = (batch, min(cfg.sliding_window, max_seq)) + tail[2:]
             shapes = {"k_loc": (Ln // g, g - 1) + ring, "v_loc": (Ln // g, g - 1) + ring,
                       "k_glob": (Ln // g, 1) + tail, "v_glob": (Ln // g, 1) + tail}
         else:
-            shapes = {"k": (Ln,) + tail, "v": (Ln,) + tail}
+            shapes = {"k": lead + tail, "v": lead + tail}
         for key, shape in shapes.items():
             cache[key] = torch.zeros(shape, dtype=dt, device=dev)
-    else:
+    if cfg.family in ("ssm", "hybrid"):
         di, N, H, G = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, 1
-        cache["conv"] = torch.zeros((Ln, batch, cfg.conv_kernel - 1, di + 2 * G * N),
+        cache["conv"] = torch.zeros(lead + (batch, cfg.conv_kernel - 1, di + 2 * G * N),
                                     dtype=dt, device=dev)
-        cache["state"] = torch.zeros((Ln, batch, H, N, di // H), dtype=_F32, device=dev)
+        cache["state"] = torch.zeros(lead + (batch, H, N, di // H), dtype=_F32, device=dev)
     return cache
 
 
@@ -342,6 +353,15 @@ def _layer_kv(cfg: ModelConfig, cache: Dict, i: int) -> Tuple:
     if j == cfg.global_interval - 1:
         return cache["k_glob"][gi, 0], cache["v_glob"][gi, 0], False
     return cache["k_loc"][gi, j], cache["v_loc"][gi, j], True
+
+
+def _layer_ssm(cfg: ModelConfig, cache: Dict, i: int) -> Tuple:
+    """Layer ``i``'s (conv, state) views into the cache: [i // g, i % g]
+    when grouped, [i] otherwise."""
+    if "k_loc" in cache:
+        gi, j = divmod(i, cfg.global_interval)
+        return cache["conv"][gi, j], cache["state"][gi, j]
+    return cache["conv"][i], cache["state"][i]
 
 
 @torch.no_grad()
@@ -358,8 +378,11 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     h = embed_tokens(params, cfg, tokens)
     for i, (blk, is_global) in enumerate(zip(params.blocks, layer_flags(cfg))):
         h, ncs = _block(h, blk, cfg, positions, {}, is_global=is_global)
+        if "conv" in ncs:
+            conv, state = _layer_ssm(cfg, cache, i)
+            conv.copy_(ncs["conv"])
+            state.copy_(ncs["state"])
         if "kv" not in ncs:
-            cache["conv"][i], cache["state"][i] = ncs["conv"], ncs["state"]
             continue
         ck, cv, ring = _layer_kv(cfg, cache, i)
         k, v = ncs["kv"]
@@ -391,12 +414,16 @@ def decode_step(params: LM, cfg: ModelConfig, cache: Dict,
     positions = torch.arange(pos, pos + 1, device=params.device)
     h = embed_tokens(params, cfg, tokens)
     for i, (blk, is_global) in enumerate(zip(params.blocks, layer_flags(cfg))):
+        caches, ring = {}, False
         if full is not None:
             ck, cv, ring = _layer_kv(cfg, cache, i)
-            h, _ = _block(h, blk, cfg, positions, {"kv": (ck, cv)}, pos, is_global, ring)
-        else:
-            h, ncs = _block(h, blk, cfg, positions,
-                            {"conv": cache["conv"][i], "state": cache["state"][i]})
-            cache["conv"][i], cache["state"][i] = ncs["conv"], ncs["state"]
+            caches["kv"] = (ck, cv)
+        if "conv" in cache:
+            conv, state = _layer_ssm(cfg, cache, i)
+            caches.update(conv=conv, state=state)
+        h, ncs = _block(h, blk, cfg, positions, caches, pos, is_global, ring)
+        if "conv" in ncs:
+            conv.copy_(ncs["conv"])
+            state.copy_(ncs["state"])
     cache["pos"] = pos + 1
     return _logits(params, cfg, h), cache

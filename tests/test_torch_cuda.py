@@ -387,6 +387,23 @@ def test_flash_attention_window_at_gemma3_and_without_causal(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("BHq,BHkv,S,W", [(100, 20, 1536, 1024), (100, 20, 1536, 0),
+                                           (10, 2, 300, 0), (10, 2, 300, 64)])
+def test_flash_attention_at_hymba_shapes(cuda, BHq, BHkv, S, W):
+    """hymba-1.5b's prefill: bfloat16 at D 64 on the tensor cores with five
+    query rows per kv row (G = 5), its local (W 1024) and global layers at
+    4 x 1536 tokens, and a ragged 300-token case; 2e-2, one launch per
+    call."""
+    q = _t(RNG.normal(size=(BHq, S, 64)).astype(np.float32), cuda).bfloat16()
+    k = _t(RNG.normal(size=(BHkv, S, 64)).astype(np.float32), cuda).bfloat16()
+    v = _t(RNG.normal(size=(BHkv, S, 64)).astype(np.float32), cuda).bfloat16()
+    n = T_fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, True, W)
+    assert T_fa.flash_attention_cuda.launches == n + 1 and got.dtype == torch.bfloat16
+    want = T_fa.flash_attention_plain(q, k, v, True, W)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attention_refuses_windows_it_cannot_take_on_cuda(cuda):
     q, k = torch.zeros(2, 12, 64, device=cuda), torch.zeros(2, 8, 64, device=cuda)
     n = T_fa.flash_attention_cuda.launches
@@ -426,7 +443,12 @@ def _ssd_inputs(cells, rows, L, P, N, dev):
                                               (26, 2, 256, 64, 128),  # 13: groups of 7 and 6
                                               (6, 2, 300, 16, 136),  # two segments of L
                                               (4, 2, 70, 10, 6),  # 4-byte copies
-                                              (3, 1, 40, 7, 5)])  # odd P: scalar stores
+                                              (3, 1, 40, 7, 5),  # odd P: scalar stores
+                                              # hymba-1.5b: 50 heads a row (5 blocks of
+                                              # 10), N 16; served, and the CPU cut's
+                                              # ragged chunks of 220 and 150
+                                              (1200, 24, 256, 64, 16), (250, 5, 220, 64, 16),
+                                              (100, 2, 150, 64, 16)])
 @pytest.mark.parametrize("x_scale,bc_scale", [(1.0, 1.0), (1e3, 10.0)])
 def test_ssd_intra_chunk_kernel_matches_plain(cuda, full_f32, cells, rows, L, P, N, x_scale,
                                               bc_scale):
@@ -543,21 +565,28 @@ def test_reduced_models_served_on_cuda_match_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("prompt", [48, 4])
-def test_reduced_gemma3_over_ring_caches_on_cuda_matches_cpu(cuda, prompt):
+@pytest.mark.parametrize("arch,edits", [
+    ("gemma3-12b", dict(n_layers=6, sliding_window=8)),
+    ("hymba-1.5b", dict(n_layers=4, global_interval=4, sliding_window=8))])
+def test_reduced_ring_cache_models_on_cuda_match_cpu(cuda, arch, edits, prompt):
     """gemma3-12b cut to 6 float32 layers (5 local, 1 global: grouped ring
-    caches) with a window of 8: prefill logits at 2e-4 with B4 launched
-    once per layer (the window on five), and the greedy tokens of 8 steps
-    identical to the CPU's, after a prompt that wraps the rings and after
-    one that leaves them part empty (ROADMAP C.14's case)."""
-    cfg = dataclasses.replace(TC.reduced(TC.get_config("gemma3-12b")), n_layers=6,
-                              sliding_window=8)
+    caches) and hymba-1.5b cut to 4 (3 local, 1 global, with grouped
+    conv/state leaves), each with a window of 8: prefill logits at 2e-4
+    with each kernel of the family launched once per layer (B4 with the
+    window on the local ones), and the greedy tokens of 8 steps identical
+    to the CPU's, after a prompt that wraps the rings and after one that
+    leaves them part empty (ROADMAP C.14's case)."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)), **edits)
     gpu = T_lm.init_params(cfg, seed=0, device=cuda)
     cpu = T_lm.LM(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
     prompts = RNG.integers(0, cfg.vocab_size, (2, prompt))
-    n = T_fa.flash_attention_cuda.launches
+    hybrid = cfg.family == "hybrid"
+    n = T_fa.flash_attention_cuda.launches, T_ssd.ssd_intra_chunk_cuda.launches
     gl, gcache = T_lm.prefill(gpu, cfg, torch.from_numpy(prompts).to(cuda), max_seq=prompt + 8)
-    assert T_fa.flash_attention_cuda.launches == n + 6 and "k_loc" in gcache
+    assert (T_fa.flash_attention_cuda.launches - n[0], T_ssd.ssd_intra_chunk_cuda.launches - n[1]) \
+        == (cfg.n_layers, cfg.n_layers if hybrid else 0)
+    assert "k_loc" in gcache and ("conv" in gcache) == hybrid
     cl, _ = T_lm.prefill(cpu, cfg, torch.from_numpy(prompts), max_seq=prompt + 8)
     torch.testing.assert_close(gl.cpu(), cl, rtol=2e-4, atol=2e-4)
     got = ServeEngine(cfg, gpu, max_seq=prompt + 8, device=cuda).generate(prompts, 8)

@@ -1,7 +1,8 @@
 """Port parity for the LM serving path on the CPU: configs, ``layers``,
 the SSD blocks, and reduced olmo-1b / mamba2-780m (plus the dense variants
 qwen1.5-0.5b, gemma-2b and the sliding-window gemma3-12b, whose 6-layer
-cut decodes over grouped ring caches) with the reference's weights carried
+cut decodes over grouped ring caches, and the hybrid hymba-1.5b, whose
+4-layer cut adds grouped conv/state leaves) with the reference's weights carried
 over by ``params_from_jax``: prefill logits and caches, 8 decode steps, and
 ``ServeEngine.generate``'s greedy tokens.  Inputs come from numpy seeds and
 go through both packages."""
@@ -22,6 +23,7 @@ from repro.models import ssm as J_ssm  # noqa: E402
 from repro.serve import ServeEngine as J_Engine  # noqa: E402
 from repro_torch import configs as T_cfg  # noqa: E402
 from repro_torch.kernels import flash_attention as T_fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as T_ssd_k  # noqa: E402
 from repro_torch.models import layers as T_L  # noqa: E402
 from repro_torch.models import lm as T_lm  # noqa: E402
 from repro_torch.models import ssm as T_ssm  # noqa: E402
@@ -76,7 +78,8 @@ def test_configs_are_the_reference_configs(arch):
 @pytest.mark.parametrize("arch", J_cfg.ARCH_IDS)
 def test_families_not_ported_raise(arch):
     cfg = T_cfg.reduced(T_cfg.get_config(arch))
-    served = cfg.family in ("dense", "ssm") and cfg.logit_softcap is None  # gemma3-12b too
+    # gemma3-12b and hymba-1.5b too
+    served = cfg.family in ("dense", "ssm", "hybrid") and cfg.logit_softcap is None
     if served:
         T_lm.LM(cfg, device="cpu")
     else:
@@ -193,10 +196,14 @@ def test_ssd_decode_step_matches():
 # --------------------------------------------------------------------------
 MODELS = [("olmo-1b", None), ("mamba2-780m", None), ("qwen1.5-0.5b", None), ("gemma-2b", None),
           ("mamba2-780m", 250),  # 250 → 256 padded vocab rows: the logit mask
-          ("gemma3-12b", None)]  # 2 local layers, window 32: the full cache
+          ("gemma3-12b", None),  # 2 local layers, window 32: the full cache
+          ("hymba-1.5b", None)]  # the same, each block attention and SSD heads
 #: gemma3-12b cut to 6 layers (5 local, 1 global: grouped ring caches) with
 #: a window of 8, so the window bites and the ring wraps
 GROUPED = dict(n_layers=6, sliding_window=8)
+#: hymba-1.5b cut to 4 layers of one group (3 local, 1 global): the rings
+#: and the conv/state leaves all on the (L/g, g) lead
+GROUPED_HYMBA = dict(n_layers=4, global_interval=4, sliding_window=8)
 
 
 def _tokens(cfg, shape, seed):
@@ -221,19 +228,23 @@ def _compare_caches(jcache, tcache, tol, relative_to_leaf=False):
 # (arch, vocab, prompt shape, max_seq, edits): the olmo case below the
 # prompt asks for fewer cache positions than the prompt has, and the
 # reference then keeps all of them; the grouped gemma3 prompts fill the
-# 8-slot rings (12 tokens roll them by 4)
+# 8-slot rings (12 tokens roll them by 4); the grouped hymba prompts are one
+# SSD chunk of 12 and two chunks of 10 (the recurrence across chunks)
 PREFILL_CASES = [pytest.param(a, v, (2, 32), 40, {}, id=f"{a}-{v}") for a, v in MODELS] + [
     pytest.param("olmo-1b", None, (1, 12), 8, {}, id="olmo-1b-max_seq-below-prompt")] + [
     pytest.param("gemma3-12b", None, (2, S), S + 8, GROUPED, id=f"gemma3-12b-grouped-{S}")
-    for S in (12, 16)]
+    for S in (12, 16)] + [
+    pytest.param("hymba-1.5b", None, (2, S), S + 8, GROUPED_HYMBA, id=f"hymba-1.5b-grouped-{S}")
+    for S in (12, 20)]
 
 
 @pytest.mark.parametrize("arch,vocab,prompt,max_seq,edits", PREFILL_CASES)
 def test_prefill_and_decode_match(arch, vocab, prompt, max_seq, edits):
     """Prefill logits and every cache leaf (shapes included: the grouped
-    rings and global caches too), then up to 8 decode steps as the cache
-    has room for (logits and caches), at F32_TOL.  The mamba prompt spans
-    two 16-step chunks."""
+    rings and global caches, and hymba's conv/state leaves in their
+    (L/g, g, ...) layout, too), then up to 8 decode steps as the cache has
+    room for (logits and caches), at F32_TOL.  The mamba and hymba prompts
+    span two 16-step chunks."""
     jc, tc, params, model = _models(arch, vocab, **edits)
     toks = _tokens(jc, prompt, 0)
     B, S = prompt
@@ -257,14 +268,23 @@ def test_prefill_and_decode_match(arch, vocab, prompt, max_seq, edits):
 def test_grouped_layout_is_the_reference_layout():
     """gemma3-12b's flags and grouping, published and cut: 40 local and 8
     global layers at full depth; the 6-layer cut grouped, the 2-layer
-    reduced config not (2 % 6 != 0)."""
-    for edits in ({}, dict(n_layers=6), dict(n_layers=2)):
-        jc = dataclasses.replace(J_cfg.get_config("gemma3-12b"), **edits)
-        tc = dataclasses.replace(T_cfg.get_config("gemma3-12b"), **edits)
-        assert T_lm.layer_flags(tc) == np.asarray(J_lm.layer_flags(jc)).tolist()
-        assert T_lm.grouped_decode(tc) == J_lm.grouped_decode(jc)
+    reduced config not (2 % 6 != 0).  hymba-1.5b's: layers 15 and 31
+    global at full depth (ROADMAP C.15: the config's docstring says 3),
+    grouped; the 16-layer cut grouped as one group; reduced not grouped."""
+    for arch, cuts in (("gemma3-12b", (dict(n_layers=6), dict(n_layers=2))),
+                       ("hymba-1.5b", (dict(n_layers=16), GROUPED_HYMBA))):
+        for edits in ({},) + cuts:
+            jc = dataclasses.replace(J_cfg.get_config(arch), **edits)
+            tc = dataclasses.replace(T_cfg.get_config(arch), **edits)
+            assert T_lm.layer_flags(tc) == np.asarray(J_lm.layer_flags(jc)).tolist()
+            assert T_lm.grouped_decode(tc) == J_lm.grouped_decode(jc)
+        jr, tr = J_cfg.reduced(J_cfg.get_config(arch)), T_cfg.reduced(T_cfg.get_config(arch))
+        assert T_lm.grouped_decode(tr) == J_lm.grouped_decode(jr) is False
     full = T_cfg.get_config("gemma3-12b")
     assert T_lm.layer_flags(full).count(False) == 40 and T_lm.grouped_decode(full)
+    hymba = T_cfg.get_config("hymba-1.5b")
+    flags = T_lm.layer_flags(hymba)
+    assert [i for i, f in enumerate(flags) if f] == [15, 31] and T_lm.grouped_decode(hymba)
     tc = T_cfg.reduced(T_cfg.get_config("olmo-1b"))
     assert T_lm.layer_flags(tc) == [True] * tc.n_layers and not T_lm.grouped_decode(tc)
 
@@ -291,14 +311,17 @@ def test_windowed_full_cache_decode_matches_reference_and_forward():
     np.testing.assert_allclose(tl[:, 0].numpy(), np.asarray(full), **F32_TOL)
 
 
-def test_ring_decode_masks_unwritten_slots_where_the_reference_does_not():
+@pytest.mark.parametrize("arch,edits", [("gemma3-12b", GROUPED), ("hymba-1.5b", GROUPED_HYMBA)],
+                         ids=["gemma3-12b", "hymba-1.5b"])
+def test_ring_decode_masks_unwritten_slots_where_the_reference_does_not(arch, edits):
     """ROADMAP C.14: a 4-token prompt leaves 4 of the 8 ring slots
     unwritten.  The reference gives slot i position i − 8, which passes its
     causal and window tests, so its decode attends to zeroed keys; the
     port masks those slots.  At each of 8 steps the port's logits equal the
     reference's ``forward`` over the grown sequence at F32_TOL, and the
-    reference's decode is off from it by more than 1e-2."""
-    jc, tc, params, model = _models("gemma3-12b", **GROUPED)
+    reference's decode is off from it by more than 1e-2.  The hybrid
+    family's attention half has the same rings."""
+    jc, tc, params, model = _models(arch, **edits)
     toks = _tokens(jc, (2, 12), 3)
     _, jcache = J_lm.prefill(params, jc, jnp.asarray(toks[:, :4]), max_seq=12)
     _, tcache = T_lm.prefill(model, tc, _t(toks[:, :4]), max_seq=12)
@@ -350,7 +373,7 @@ def test_decode_past_a_full_cache_raises_where_the_reference_clamps():
         T_lm.decode_step(model, tc, tcache, _t(tok))
 
 
-@pytest.mark.parametrize("arch,vocab", MODELS[:2])
+@pytest.mark.parametrize("arch,vocab", MODELS[:2] + [("hymba-1.5b", None)])
 def test_serve_engine_greedy_tokens_identical(arch, vocab):
     jc, tc, params, model = _models(arch, vocab, seed=3)
     prompts = _tokens(jc, (3, 16), 5)
@@ -361,11 +384,12 @@ def test_serve_engine_greedy_tokens_identical(arch, vocab):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-780m", "hymba-1.5b"])
 def test_bfloat16_weights_carry_over_bit_exactly(arch):
     """bfloat16 leaves cross through a 16-bit view bit for bit (A's log
     stays float32); prefill logits agree at BF16_TOL, caches at BF16_TOL
-    with the absolute part scaled by each leaf's largest value."""
+    with the absolute part scaled by each leaf's largest value.  hymba's
+    blocks average their two halves in bfloat16, as the reference's do."""
     jc, tc, params, model = _models(arch, dtype="bfloat16")
     ref_leaves = jax.tree.map(np.asarray, params)
     emb = ref_leaves["embed"]
@@ -420,6 +444,34 @@ def test_local_layers_call_b4_with_the_window():
         mp.setattr(T_fa, "flash_attention_plain", spy)
         T_lm.prefill(model, tc, _t(_tokens(tc, (2, 12), 0)))
     assert windows == [8, 8, 8, 8, 8, 0]
+
+
+def test_hybrid_prefill_calls_b4_and_b5_once_per_layer():
+    """The grouped 4-layer hymba cut: each layer's attention is one B4 call
+    (the window on the three local layers, none on the global one) and its
+    SSD mixer one B5 call over all its cells; on the CPU these are the
+    plain versions, with no launch."""
+    _, tc, _, model = _models("hymba-1.5b", **GROUPED_HYMBA)
+    calls = []
+    fa_plain, ssd_plain = T_fa.flash_attention_plain, T_ssd_k.ssd_intra_chunk_plain
+
+    def fa_spy(q, k, v, causal=True, window=0):
+        calls.append(("B4", window))
+        return fa_plain(q, k, v, causal, window)
+
+    def ssd_spy(x, dt, cum, B, C):
+        calls.append(("B5", tuple(x.shape), tuple(B.shape)))
+        return ssd_plain(x, dt, cum, B, C)
+
+    launches = T_fa.flash_attention_cuda.launches, T_ssd_k.ssd_intra_chunk_cuda.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(T_fa, "flash_attention_plain", fa_spy)
+        mp.setattr(T_ssd_k, "ssd_intra_chunk_plain", ssd_spy)
+        T_lm.prefill(model, tc, _t(_tokens(tc, (2, 12), 0)))
+    H, P = tc.n_ssm_heads, tc.d_inner // tc.n_ssm_heads
+    b5 = ("B5", (2 * H, 12, P), (2, 12, tc.ssm_state))  # one chunk of 12, one B/C row a batch
+    assert calls == [("B4", 8), b5] * 3 + [("B4", 0), b5]
+    assert (T_fa.flash_attention_cuda.launches, T_ssd_k.ssd_intra_chunk_cuda.launches) == launches
 
 
 def test_init_params_follows_the_reference_rules():
